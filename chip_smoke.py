@@ -6,12 +6,17 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain torch version on the card, drives the inference
 path at the full width of Llama-1B (a scoring forward through the flash
 kernel, then the continuous-batching engine serving 32 requests, whose
-outputs are scored again), checks the results, and prints one JSON line
-per phase. The line before the last lists every kernel with its launches
-on the main path, error, time, the plain version's time, the library
-call's time and the card's bound; the last line is
-{"ok": true, "device": {...}}. Any failure raises: the exit code is then
-non-zero and no result line is printed. Needs one CUDA device.
+outputs are scored again), then the training path: Llama-350m at B=8 x
+T=2048 and Llama-1B at B=2 x T=2048, both at full width and depth
+(bench.py's headline configurations), a 2-layer 350m-width step at
+T=16384 that takes the dq + dkv backward kernels, and an f32 check of
+every gradient against the reference attention. It checks the results
+and prints one JSON line per phase. The line before the last lists
+every kernel with its launches on the main paths, error, time, the
+plain version's time, the library call's time and the card's bound; the
+last line is {"ok": true, "device": {...}}. Any failure raises: the exit
+code is then non-zero and no result line is printed. Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ import time
 import numpy as np
 import torch
 
-from ray_tpu_torch import _kernels
+from ray_tpu_torch import _kernels, train
 from ray_tpu_torch.models import decode_engine, llama
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
 SEED = 0
 # Datasheet peaks (dense): bf16 tensor-core FLOP/s and HBM bytes/s.
@@ -48,6 +54,35 @@ FLASH_CASES = [
     ("tiny_d16", 2, 4, 2, 200, 200, 16, True, torch.bfloat16),
     ("d32", 1, 8, 2, 100, 100, 32, True, torch.bfloat16),
 ]
+# Backward kernels against their plain versions, on
+# max|kernel - plain| / max|plain| per output. bf16: both sides round p
+# and ds to bf16 before their products, and an f32 value that differs in
+# its last bit (exp2, sums in another order, dq's f32 atomics in a
+# run-dependent order) can round to the neighbouring bf16 value, a step
+# of 2**-8 of one term; the outputs are rounded to bf16 once. f32: full
+# f32 on both sides (TF32 off); only the order of the sums differs.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# (name, B, Hq, Hkv, T, S, D, causal, dtype, route); the first case of
+# each route is its main path's shape
+BWD_CASES = [
+    ("main_350m", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
+    ("gqa_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
+    ("ragged_noncausal_d64", 2, 12, 12, 333, 777, 64, False, torch.bfloat16, "fused"),
+    ("empty_rows_t64_s32", 2, 4, 2, 64, 32, 64, True, torch.bfloat16, "fused"),
+    ("f32_gqa_d128", 1, 8, 4, 300, 300, 128, True, torch.float32, "fused"),
+    ("d16", 2, 4, 2, 200, 200, 16, True, torch.bfloat16, "fused"),
+    ("d32", 1, 8, 2, 100, 100, 32, True, torch.bfloat16, "fused"),
+    ("test_ops_long_kv_f32", 1, 1, 1, 256, 16384, 32, True, torch.float32, "split"),
+    ("gqa_d128_s12288", 1, 16, 8, 1024, 12288, 128, True, torch.bfloat16, "split"),
+]
+BWD_KERNELS = {
+    "flash_bwd_fused": (fa.flash_bwd_fused, fa.flash_bwd_fused_plain, ("dq", "dk", "dv")),
+    "flash_bwd_dq": (fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
+    "flash_bwd_dkv": (fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv")),
+}
+# tensor-core products per kept (q, k) pair and head, 2*D flops each
+PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
+            "flash_bwd_dkv": 4}
 
 
 def emit(obj) -> None:
@@ -78,19 +113,29 @@ def flash_inputs(b, hq, hkv, t, s, d, dtype, seed):
     return rnd(b, hq, t, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
 
 
-def flash_bound(b, hq, hkv, t, s, d, causal, dtype, peaks):
-    """Least time for the forward on this card: the larger of its
-    tensor-core operations (only the (q, k) pairs the mask keeps) over
-    the peak rate and its bytes (q, k, v read once, out and lse written
-    once) over the memory rate."""
+def flash_bound(b, hq, hkv, t, s, d, causal, dtype, peaks, kernel="flash_fwd"):
+    """Least time for a flash kernel on this card: the larger of its
+    tensor-core operations (2*D flops per product per (q, k) pair the
+    mask keeps) over the peak rate and its bytes (each input read once,
+    each output written once) over the memory rate. Forward: q, k, v in,
+    out and lse out. Backward: q, k, v, do, lse and delta in; dq (dq
+    kernel), dk and dv (dkv kernel) or all three (fused) out."""
     if causal:
         rows = np.arange(t) + (s - t) + 1
         pairs = int(np.clip(rows, 0, s).sum())
     else:
         pairs = t * s
-    flops = 4.0 * b * hq * d * pairs
+    flops = 2.0 * PRODUCTS[kernel] * b * hq * d * pairs
     esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esize * (2 * b * hq * t * d + 2 * b * hkv * s * d) + 4 * b * hq * t
+    q_bytes, kv_bytes, row_bytes = (esize * b * hq * t * d,
+                                    esize * b * hkv * s * d, 4 * b * hq * t)
+    if kernel == "flash_fwd":
+        nbytes = 2 * q_bytes + 2 * kv_bytes + row_bytes
+    else:
+        nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # inputs
+        nbytes += {"flash_bwd_fused": q_bytes + 2 * kv_bytes,
+                   "flash_bwd_dq": q_bytes,
+                   "flash_bwd_dkv": 2 * kv_bytes}[kernel]
     flop_peak = peaks[0] if dtype == torch.bfloat16 else 67e12
     t_ops, t_bytes = flops / flop_peak, nbytes / peaks[1]
     return (max(t_ops, t_bytes) * 1e3,
@@ -117,13 +162,16 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    paths = _kernels.build(["flash_fwd"])
-    log = paths["flash_fwd"].with_suffix(".log")
-    ptxas = log.read_text() if log.exists() else "(cached build)"
+    paths = _kernels.build(["flash_fwd", "flash_bwd"])  # one nvcc each, together
+    ptxas = {}
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        text = log.read_text() if log.exists() else "(cached build)"
+        ptxas[name] = [ln.strip() for ln in text.splitlines()
+                       if "registers" in ln or "spill" in ln or
+                       "Compiling entry" in ln][:120]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
-          "libs": {k: v.name for k, v in paths.items()},
-          "ptxas": [ln for ln in ptxas.splitlines()
-                    if "registers" in ln or "spill" in ln][:16]})
+          "libs": {k: v.name for k, v in paths.items()}, "ptxas": ptxas})
 
 
 def phase_kernel_vs_plain():
@@ -282,55 +330,460 @@ def phase_exactness_f32():
         raise AssertionError(f"engine != greedy_generate on {mismatched}")
 
 
-def phase_kernels_line(errs, launches, peaks):
-    name, b, hq, hkv, t, s, d, causal, dtype = FLASH_CASES[0]
-    q, k, v = flash_inputs(b, hq, hkv, t, s, d, dtype, SEED)
-    bound_ms, bound_by, flops, nbytes = flash_bound(
-        b, hq, hkv, t, s, d, causal, dtype, peaks)
+def bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, seed):
+    """q, k, v, do (seeded) and the forward kernel's residuals, as the
+    backward gets them: (q, k, v, do, lse, delta)."""
+    q, k, v = flash_inputs(b, hq, hkv, t, s, d, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    return q, k, v, do, lse, delta
+
+
+def bwd_errors(kernel, args, causal):
+    """Run a backward kernel and its plain version on the same inputs:
+    {output: (max abs error, error / max |plain|)}."""
+    fn, plain, names = BWD_KERNELS[kernel]
+    got = fn(*args, causal=causal)
+    torch.cuda.synchronize()
+    want = plain(*args, causal=causal)
+    if len(names) == 1:
+        got, want = (got,), (want,)
+    errs = {}
+    for name, a, w in zip(names, got, want):
+        a, w = a.float(), w.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{kernel}: non-finite {name}")
+        err = (a - w).abs().max().item()
+        errs[name] = (err, err / max(w.abs().max().item(), 1e-30))
+    return errs, got
+
+
+def phase_bwd_kernel_vs_plain():
+    results = {}
+    for i, (name, b, hq, hkv, t, s, d, causal, dtype, route) in enumerate(BWD_CASES):
+        if fa._use_fused_bwd(t, s) != (route == "fused"):
+            raise AssertionError(f"{name}: the gate does not take the {route} path")
+        args = bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, SEED + 50 + i)
+        kernels = (["flash_bwd_fused"] if route == "fused"
+                   else ["flash_bwd_dq", "flash_bwd_dkv"])
+        for kernel in kernels:
+            errs, got = bwd_errors(kernel, args, causal)
+            tol = BWD_TOL[dtype]
+            ok = all(rel <= tol for _, rel in errs.values())
+            if t > s and causal and "dq" in errs:  # rows that see no key
+                ok = ok and bool((got[0][:, :, :t - s] == 0).all())
+            emit({"phase": "bwd_kernel_vs_plain", "kernel": kernel, "case": name,
+                  "shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
+                  "causal": causal, "dtype": str(dtype).split(".")[-1],
+                  "max_abs_err": {k: e for k, (e, _) in errs.items()},
+                  "err_over_max_ref": {k: r for k, (_, r) in errs.items()},
+                  "tol_over_max_ref": tol, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{kernel} disagrees with its plain "
+                                     f"version on {name}: {errs} (tol {tol})")
+            results[(kernel, name)] = max(e for e, _ in errs.values())
+            del got
+        del args
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_config(size, remat_policy, **over):
+    """bench.py's training configuration: the named size at full width,
+    vocab 32128, bf16 compute, remat on with ``remat_policy``."""
+    base = llama.llama2_size(size)
+    return llama.LlamaConfig(**{**base.__dict__, "vocab_size": 32128,
+                                "max_seq_len": 2048, "dtype": "bfloat16",
+                                "remat": True, "remat_policy": remat_policy,
+                                **over})
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def train_setup(cfg, batch, seq):
+    """bench.py's bench_train on the port: f32 masters, fused AdamW with
+    bf16 moments, bf16 gradients, one fixed seeded batch. Returns (state,
+    step, batch)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    opt = train.fused_adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16,
+                            nu_dtype=torch.bfloat16)
+    state = train.init_train_state(
+        lambda dev: llama.init_params(cfg, g, dev, master=True), opt,
+        device="cuda")
+    step = train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt,
+                                 compute_grad_norm=False,
+                                 grads_dtype=torch.bfloat16, device="cuda")
+    toks = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int64)
+    toks = torch.from_numpy(toks).cuda()
+    return state, step, {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def phase_train(tag, cfg, batch, seq, expect, peaks, *, warm=2, timed=5):
+    """`warm` train steps, then `timed` steps between CUDA events (see
+    train_setup). Every step must launch exactly `expect` flash kernels.
+    Returns the launches of all steps."""
+    state, step, data = train_setup(cfg, batch, seq)
+    per_step, losses, total = [], [], {}
+
+    def one():
+        nonlocal state
+        fa.reset_launch_count()
+        state, metrics = step(state, data)
+        counts = fa.launch_counts()
+        per_step.append(counts)
+        add_counts(total, counts)
+        losses.append(metrics["loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        one()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        one()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / timed
+    with torch.no_grad():
+        fa.reset_launch_count()
+        final = float(llama.loss_fn(state.params, data, cfg)[0])
+        add_counts(total, fa.launch_counts())
+    losses = [float(x) for x in losses]
+    n_params = cfg.num_params()
+    tps = batch * seq / (step_ms / 1e3)
+    bad_counts = [c for c in per_step if c != expect]
+    ok = (all(np.isfinite(losses)) and np.isfinite(final)
+          and final < losses[0] and not bad_counts)
+    emit({"phase": tag, "size": f"{cfg.d_model}d x {cfg.n_layers}L",
+          "n_params": n_params, "batch": batch, "seq": seq,
+          "remat_policy": cfg.remat_policy, "grads_dtype": "bfloat16",
+          "warm_steps": warm, "warm_seconds": warm_s, "timed_steps": timed,
+          "step_ms": step_ms, "tokens_per_sec": tps,
+          "mfu": 6.0 * n_params * tps / peaks[0],
+          "mfu_peak_flops": peaks[0], "card": torch.cuda.get_device_name(0),
+          "losses": losses, "loss_after_last_step": final,
+          "launches_per_step": per_step[-1], "expected_per_step": expect,
+          "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{tag}: losses {losses} -> {final}, launch "
+                             f"counts off the expected {expect}: {bad_counts}")
+    del state, step
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_sr_card_vs_cpu():
+    """The optimizer's stochastic rounding (wrapping int32 tensor ops)
+    gives the same bits on the card as on the CPU, where the tests hold
+    it bit for bit against the JAX package."""
+    from ray_tpu_torch.train.optim import _stochastic_round_bf16
+
+    g = torch.Generator().manual_seed(SEED + 500)
+    x = torch.randn(1 << 20, generator=g) * 1e-3
+    x[:4] = torch.tensor([float("inf"), -float("inf"), 0.0, -1e-30])
+    mismatches = 0
+    for key in (0, 1, 0x9E3779B9, 0xFFFFFFFF):
+        cpu = _stochastic_round_bf16(x, key).view(torch.int16)
+        card = _stochastic_round_bf16(x.cuda(), key).view(torch.int16).cpu()
+        mismatches += int((cpu != card).sum())
+    emit({"phase": "sr_card_vs_cpu", "elements": x.numel(), "keys": 4,
+          "mismatches": mismatches, "ok": mismatches == 0})
+    if mismatches:
+        raise AssertionError(f"stochastic rounding differs on the card: "
+                             f"{mismatches} elements")
+
+
+KERNEL_GROUPS = (("flash", ("flash_",)),
+                 ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma", "cublas")),
+                 ("copy_cast", ("copy", "Memcpy", "Memset")),
+                 ("reduce", ("reduce",)),
+                 ("elementwise", ("elementwise", "index", "arange", "cat")))
+
+
+def kernel_group(name):
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def phase_profile(tag, cfg, batch, seq, steps=2):
+    """Where a training step's time goes: torch.profiler over `steps`
+    steps after one warm step, per step: the device's busy time (the
+    union of its kernels' intervals), the wall time with and without the
+    profiler, the idle share (busy time against the wall time without
+    the profiler, whose own overhead stretches the profiled wall), the
+    device spans of the step's two ranges, kernel time by group and the
+    top kernels. Before it, the host's time to enqueue a step without the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, data = train_setup(cfg, batch, seq)
+    state, _ = step(state, data)
+    torch.cuda.synchronize()
+    # without the profiler: the host's time to enqueue a step, and the
+    # step's wall time (equal when the host holds the device back)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, data)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, data)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device kernels: busy time is the union of their intervals
+    gpu = [e for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    # the step's ranges also show on the device timeline, as spans
+    ranges = {}
+    for e in gpu:
+        if e.name.startswith("train_step."):
+            ranges[e.name] = ranges.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / steps
+    kernels = [e for e in gpu if not e.name.startswith("train_step.")]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3 / steps
+    by_group, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + us / 1e3 / steps
+        n, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (n + us / 1e3 / steps, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    emit({"phase": tag, "remat_policy": cfg.remat_policy if cfg.remat else None,
+          "batch": batch, "seq": seq, "steps": steps,
+          "host_enqueue_ms_per_step": enqueue_ms,
+          "wall_ms_per_step_unprofiled": plain_wall_ms,
+          "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / plain_wall_ms),
+          "kernel_ms_per_step_by_group": by_group,
+          "range_device_span_ms_per_step": ranges,
+          "top_kernels": [{"name": n[:90], "ms_per_step": ms,
+                           "calls_per_step": c / steps}
+                          for n, (ms, c) in top]})
+    del state, step, prof
+    torch.cuda.empty_cache()
+
+
+def phase_grad_exactness_f32():
+    """Every gradient with the flash kernels (f32 forward and fused
+    backward) against the reference attention under autograd: 350m
+    width, 2 layers, f32 compute, TF32 off, B=2 x T=512."""
+    cfg = train_config("350m", "dots", n_layers=2, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    params = llama.init_params(cfg, g, "cuda", master=True)
+    toks = torch.from_numpy(np.random.RandomState(SEED + 300).randint(
+        0, cfg.vocab_size, (2, 513)).astype(np.int64)).cuda()
+
+    def grads(use_flash):
+        c = llama.LlamaConfig(**{**cfg.__dict__, "use_flash": use_flash})
+        leaves = [x.detach().clone().requires_grad_() for x in tree_leaves(params)]
+        loss, _ = llama.loss_fn(tree_unflatten(params, leaves),
+                                {"tokens": toks}, c)
+        return torch.autograd.grad(loss, leaves)
+
+    fa.reset_launch_count()
+    got = grads(True)
+    counts = fa.launch_counts()
+    want = grads(False)
+    # f32 on both sides: only the order of sums differs (and dq's atomics)
+    rel_tol = 1e-4
+    rel = {p: ((a - w).norm() / w.norm().clamp_min(1e-30)).item()
+           for p, a, w in zip(tree_paths(params), got, want)}
+    ok = (max(rel.values()) <= rel_tol and counts["flash_bwd_fused"] == 2
+          and counts["flash_fwd"] >= 2)
+    emit({"phase": "grad_exactness_f32", "layers": 2, "batch": 2, "seq": 512,
+          "launches": counts, "rel_l2_err_by_param": rel, "rel_tol": rel_tol,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"f32 gradients with the kernels differ: {rel}, "
+                             f"launches {counts}")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
+def sdpa_bwd_ms(q, k, v, do):
+    """The library's backward alone: scaled_dot_product_attention forward
+    + backward minus its forward, on the same inputs (timed only)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    # turns: plain, kernel, kernel, plain, library
-    plain_a = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal), 5)
-    kern_a = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
-    kern_b = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
-    plain_b = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal), 5)
-    lib = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def fwd_bwd():
+        out = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (qs, ks, vs), do)
+
+    both, only_fwd = time_ms(fwd_bwd), time_ms(fwd)
+    return both - only_fwd, both, only_fwd
+
+
+def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
+    """A kernel at `shape` (B, Hq, Hkv, T, S, D; bf16, causal), in turns
+    plain, kernel, kernel, plain, library; with its error against the
+    plain version there and its bound."""
+    b, hq, hkv, t, s, d = shape
+    dtype = torch.bfloat16
+    if kernel == "flash_fwd":
+        q, k, v = flash_inputs(b, hq, hkv, t, s, d, dtype, seed)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+        err = max((out.float() - ref_out.float()).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        del out, lse, ref_out, ref_lse
+        run = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+        run_plain = lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)  # noqa: E731
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = {"library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                  enable_gqa=True))}
+    else:
+        args = bwd_inputs(b, hq, hkv, t, s, d, dtype, True, seed)
+        errs, got = bwd_errors(kernel, args, True)
+        del got
+        err = max(e for e, _ in errs.values())
+        fn, plain, _ = BWD_KERNELS[kernel]
+        run = lambda: fn(*args, causal=True)  # noqa: E731
+        run_plain = lambda: plain(*args, causal=True)  # noqa: E731
+        lib = None
+    plain_a = time_ms(run_plain, iters=plain_iters, warmup=1)
+    kern_a, kern_b = time_ms(run), time_ms(run)
+    plain_b = time_ms(run_plain, iters=plain_iters, warmup=1)
+    if lib is None:
+        q, k, v, do = args[:4]
+        lib_ms, both, only_fwd = sdpa_bwd_ms(q, k, v, do)
+        lib = {"library_ms": lib_ms, "library_fwd_bwd_ms": both,
+               "library_fwd_ms": only_fwd}
+    bound_ms, bound_by, flops, nbytes = flash_bound(
+        b, hq, hkv, t, s, d, True, dtype, peaks, kernel)
     ms = min(kern_a, kern_b)
-    emit({"phase": "kernel_timing", "case": name, "kernel_ms": [kern_a, kern_b],
-          "plain_ms": [plain_a, plain_b], "sdpa_ms": lib, "flops": flops,
-          "bytes": nbytes, "bound_ms": bound_ms,
-          "achieved_tflops": flops / (ms / 1e3) / 1e12,
-          "share_of_bound": bound_ms / ms})
-    return [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:294",
-        "launches": launches, "max_abs_err": errs[name], "ms": ms,
-        "plain_ms": min(plain_a, plain_b), "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib,
-    }]
+    row = {"kernel": kernel, "shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
+           "kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b],
+           **lib, "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "achieved_tflops": flops / (ms / 1e3) / 1e12,
+           "share_of_bound": bound_ms / ms, "max_abs_err": err}
+    emit({"phase": "kernel_timing", **row})
+    torch.cuda.empty_cache()
+    return row
+
+
+SOURCES = {
+    "flash_fwd": ("ray_tpu_torch/csrc/flash_fwd.cu", "ray_tpu/ops/flash_attention.py:294"),
+    "flash_bwd_fused": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:575"),
+    "flash_bwd_dq": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:678"),
+    "flash_bwd_dkv": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:707"),
+}
+# main-path shapes (B, Hq, Hkv, T, S, D): the forward's 1B scoring shape
+# (and its 350m training shape), the fused backward's 350m training
+# shape, and the dq/dkv kernels' at 350m width with T = S = 16384
+MAIN_SHAPES = {
+    "flash_fwd": (2, 16, 8, 2048, 2048, 128),
+    "flash_bwd_fused": (8, 8, 8, 2048, 2048, 128),
+    "flash_bwd_dq": (1, 8, 8, 16384, 16384, 128),
+    "flash_bwd_dkv": (1, 8, 8, 16384, 16384, 128),
+}
+
+
+def phase_kernels_line(launches, peaks):
+    kernels = []
+    for i, (kernel, shape) in enumerate(MAIN_SHAPES.items()):
+        row = time_kernel(kernel, shape, peaks, SEED + 400 + i,
+                          plain_iters=2 if shape[3] > 4096 else 5)
+        src, replaces = SOURCES[kernel]
+        entry = {"name": kernel, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches.get(kernel, 0),
+                 "max_abs_err": row["max_abs_err"], "ms": min(row["kernel_ms"]),
+                 "plain_ms": min(row["plain_ms"]), "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                 "shape": row["shape"]}
+        if kernel == "flash_fwd":
+            train_row = time_kernel(kernel, MAIN_SHAPES["flash_bwd_fused"],
+                                    peaks, SEED + 410)
+            entry["train_350m"] = {k: train_row[k] for k in (
+                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
+        kernels.append(entry)
+    return kernels
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     name, smi, peaks = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 checks are full f32
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     phase_build()
-    errs = phase_kernel_vs_plain()
+    phase_kernel_vs_plain()
+    phase_bwd_kernel_vs_plain()
     cfg = bench_1b_config()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(cfg, g, device="cuda")
     emit({"phase": "init_1b", "n_params": cfg.num_params(),
           "layers": cfg.n_layers, "d_model": cfg.d_model})
+    # each main path: counts set to 0 just before it, read just after
+    by_path = {}
     with torch.inference_mode():
-        launches = phase_scoring(cfg, params)
-        launches += phase_serving(cfg, params)
+        by_path["scoring_1b"] = {"flash_fwd": phase_scoring(cfg, params)}
+        by_path["serving_1b"] = {"flash_fwd": phase_serving(cfg, params)}
         del params
         torch.cuda.empty_cache()
         phase_exactness_f32()
-        kernels = phase_kernels_line(errs, launches, peaks)
+    n350 = llama.llama2_size("350m").n_layers
+    n1b = llama.llama2_size("1b").n_layers
+    by_path["train_350m"] = phase_train(
+        "train_350m", train_config("350m", "dots_flash_qkv_mlp"), 8, 2048,
+        {"flash_fwd": n350, "flash_bwd_fused": n350, "flash_bwd_dq": 0,
+         "flash_bwd_dkv": 0}, peaks)
+    by_path["train_1b"] = phase_train(
+        "train_1b", train_config("1b", "flash_qkv"), 2, 2048,
+        {"flash_fwd": n1b, "flash_bwd_fused": n1b, "flash_bwd_dq": 0,
+         "flash_bwd_dkv": 0}, peaks)
+    by_path["train_long_context"] = phase_train(
+        "train_long_context",
+        train_config("350m", "dots_flash_qkv_mlp", n_layers=2,
+                     max_seq_len=16384), 1, 16384,
+        {"flash_fwd": 2, "flash_bwd_fused": 0, "flash_bwd_dq": 2,
+         "flash_bwd_dkv": 2}, peaks, warm=1, timed=2)
+    phase_grad_exactness_f32()
+    phase_sr_card_vs_cpu()
+    phase_profile("profile_train_350m", train_config("350m", "dots_flash_qkv_mlp"),
+                  8, 2048)
+    launches = {}
+    for counts in by_path.values():
+        add_counts(launches, counts)
+    for kernel in SOURCES:
+        if launches.get(kernel, 0) == 0:
+            raise AssertionError(f"{kernel} was launched no time on the main "
+                                 f"paths: {by_path}")
+    emit({"phase": "launches_by_path", **by_path})
+    kernels = phase_kernels_line(launches, peaks)
     emit({"phase": "memory",
-          "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
+          "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "script_seconds": time.perf_counter() - t_start})
     print(smi.splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,7 +17,8 @@ log-softmax at position true_len - 1 (chunk tokens report 0.0).
 
 Greedy only: sampled lanes, speculative decoding, the prefix cache,
 externally prefilled streams and metrics export are later slices
-(ROADMAP Queue 1).
+(ROADMAP Queue 1). The engine runs without autograd: weights a trainer
+publishes (which require grad) build no graph here, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ def _layer_decode_ragged(cfg: LlamaConfig, h, p, sin, cos, ck, cv, pos):
     return llama._attn_out_and_mlp(cfg, p, h, o)
 
 
+@torch.no_grad()
 def decode_chunk(params, cache, tok, active, cfg: LlamaConfig, chunk: int):
     """Advance every ACTIVE slot `chunk` greedy tokens.
 
@@ -86,10 +88,10 @@ def decode_chunk(params, cache, tok, active, cfg: LlamaConfig, chunk: int):
     for _ in range(chunk):
         sin, cos = llama.rotary_embedding(pos[:, None], cfg.head_dim,
                                           cfg.rope_theta)
-        h = params["embed"][t.long()[:, None]]  # [B, 1, D]
-        for i in range(cfg.n_layers):
-            h = _layer_decode_ragged(cfg, h, llama._layer_params(params, i),
-                                     sin, cos, k_all[i], v_all[i], pos)
+        h = llama._embed(params, cfg, t[:, None])  # [B, 1, D]
+        for i, p in enumerate(llama._unbind_layers(params)):
+            h = _layer_decode_ragged(cfg, h, p, sin, cos, k_all[i], v_all[i],
+                                     pos)
         h = llama.rms_norm(h, params["final_norm"], cfg.rms_eps)
         logits = (h[:, 0] @ w_out).float()  # [B, V]
         nxt = torch.where(active, logits.argmax(dim=-1).to(t.dtype), t)
@@ -110,6 +112,7 @@ def _greedy_first(last_logits):
     return toks.to(torch.int32), lp
 
 
+@torch.no_grad()
 def _prefill_batch_into_slots(params, prompts, true_lens, slots, cache,
                               cur_tok, cfg: LlamaConfig):
     """Prefill a BATCH of streams ([F, P] right-padded tokens, one bucket
@@ -204,6 +207,7 @@ class RaggedDecoder:
 
     # -- submission boundary --
 
+    @torch.no_grad()
     def submit(self, prompt_tokens, max_new: int, *,
                temperature: float = 0.0, top_p: float = 1.0) -> int:
         """Validates HERE (caller's thread) so a bad request raises at the
@@ -288,6 +292,7 @@ class RaggedDecoder:
                 self._pending_first.append((s, toks0[i], logp0[i]))
                 self.slot_stream[slot] = s
 
+    @torch.no_grad()
     def pump(self) -> int:
         """Admit + advance one chunk; returns the number of active slots.
 
@@ -378,6 +383,7 @@ class RaggedDecoder:
             "pumps": self.pumps,
         }
 
+    @torch.no_grad()
     def drain(self, deadline_s: float = 600.0) -> None:
         t0 = time.monotonic()
         while self.queue or any(s is not None for s in self.slot_stream):

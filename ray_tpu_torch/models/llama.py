@@ -6,28 +6,35 @@ tree converts key for key), the same GQA + RoPE + SwiGLU + RMSNorm
 pre-norm block. Weights keep JAX's ``x @ W`` orientation ([d_in, d_out]).
 
 Differences in idiom: parameters are a dict of tensors on an explicit
-device; matmul weights and the embedding are held in the compute dtype
-(cast once at load, which gives the same values as JAX's per-use
-``.astype``), norm weights in f32; the KV cache is updated IN PLACE
-(JAX's functional ``dynamic_update_slice`` becomes a slice write) and the
-layer "scan" is a Python loop. MoE, pipeline stages, sharding constraints
-and remat are not part of this module (ROADMAP Queue 1).
+device. For serving, matmul weights and the embedding are held in the
+compute dtype and norm weights in f32; for training (``master=True``)
+every leaf is an f32 master, as JAX's are. Weights are cast per use
+(``.to(cfg.compute_dtype)``, a no-op for weights already in it). The KV
+cache is updated IN PLACE (JAX's functional ``dynamic_update_slice``
+becomes a slice write) and the layer "scan" is a Python loop. Remat maps
+JAX's checkpoint policies onto ``torch.utils.checkpoint`` with selective
+checkpointing (``_remat_policy``). MoE, pipeline stages and sharding
+constraints are not part of this module (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.attention import _repeat_kv, attention
 from ray_tpu_torch.ops.losses import softmax_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rotary, rotary_embedding
+from ray_tpu_torch.utils.checkpoint_names import checkpoint_name, current_name
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _NORMS = ("attn_norm", "mlp_norm")
@@ -45,6 +52,9 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     max_seq_len: int = 4096
     dtype: str = "bfloat16"  # compute dtype of weights and activations
+    remat: bool = True  # checkpoint each layer when gradients are taken
+    # which activations a layer saves for the backward (_REMAT_POLICIES)
+    remat_policy: str = "dots"
     use_flash: bool | None = None  # None/True: flash kernel; False: reference
     tie_embeddings: bool = False
 
@@ -108,15 +118,16 @@ def _shapes(cfg: LlamaConfig) -> dict:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
-                device=None) -> dict:
+                device=None, master: bool = False) -> dict:
     """Random params with JAX's init law: embed ~ N(0, 1), each dense
     weight ~ N(0, 1/fan_in), norms 1. Drawn in f32 from ``generator``
-    (seed 0 on the target device when None), then matmul weights and the
-    embedding are cast to the compute dtype; norms stay f32."""
+    (seed 0 on the target device when None). Matmul weights and the
+    embedding are then cast to the compute dtype (norms stay f32), or,
+    with ``master=True``, every leaf stays f32 (training masters)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    cdt = cfg.compute_dtype
+    cdt = torch.float32 if master else cfg.compute_dtype
 
     def normal(shape, fan_in):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -142,22 +153,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
     return params
 
 
-def from_jax_params(np_tree: dict, cfg: LlamaConfig, device=None) -> dict:
+def from_jax_params(np_tree: dict, cfg: LlamaConfig, device=None,
+                    master: bool = False) -> dict:
     """Convert ray_tpu's JAX param tree, given as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``), into this module's.
 
     Same keys and stacked [L, ...] shapes; weights keep the ``x @ W``
     orientation [d_in, d_out], so nothing is transposed. Matmul weights
-    and the embedding go to the compute dtype, norms to f32."""
+    and the embedding go to the compute dtype, norms to f32; with
+    ``master=True`` every leaf stays f32."""
     dev = resolve_device(device)
     shapes = _shapes(cfg)
+    wdt = torch.float32 if master else cfg.compute_dtype
 
     def conv(a, shape, is_norm):
         a = np.array(a, np.float32)  # a writable copy the tensor can own
         if a.shape != tuple(shape):
             raise ValueError(f"param shape {a.shape} != expected {shape}")
-        return torch.from_numpy(a).to(
-            dev, torch.float32 if is_norm else cfg.compute_dtype)
+        return torch.from_numpy(a).to(dev, torch.float32 if is_norm else wdt)
 
     out = {
         "embed": conv(np_tree["embed"], shapes["embed"], False),
@@ -170,12 +183,24 @@ def from_jax_params(np_tree: dict, cfg: LlamaConfig, device=None) -> dict:
     return out
 
 
-def _layer_params(params: dict, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _unbind_layers(params: dict) -> list:
+    """Per-layer views of the stacked [L, ...] weights. One unbind per
+    leaf, so a backward stacks each leaf's gradient once instead of
+    summing L full-size scatters."""
+    per_leaf = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n_layers = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n_layers)]
 
 
 def _w_out(params: dict, cfg: LlamaConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return w.to(cfg.compute_dtype)
+
+
+def _embed(params: dict, cfg: LlamaConfig, tokens) -> torch.Tensor:
+    """Embedding lookup from the table cast to the compute dtype (as JAX
+    casts it before its gather)."""
+    return params["embed"].to(cfg.compute_dtype)[tokens.long()]
 
 
 # --------------------------------------------------------------------------
@@ -186,19 +211,27 @@ def _qkv(cfg: LlamaConfig, p, h, sin, cos):
     """Pre-norm QKV projection + rotary, shared by every layer variant."""
     b, t, _ = h.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = cfg.compute_dtype
     x = rms_norm(h, p["attn_norm"], cfg.rms_eps)
-    q = (x @ p["wq"]).reshape(b, t, hq, hd)
-    k = (x @ p["wk"]).reshape(b, t, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, t, hkv, hd)
+    q = (x @ p["wq"].to(cdt)).reshape(b, t, hq, hd)
+    k = (x @ p["wk"].to(cdt)).reshape(b, t, hkv, hd)
+    v = (x @ p["wv"].to(cdt)).reshape(b, t, hkv, hd)
     return apply_rotary(q, sin, cos), apply_rotary(k, sin, cos), v
 
 
 def _attn_out_and_mlp(cfg: LlamaConfig, p, h, o):
-    """wo projection + residual + dense SwiGLU MLP + residual."""
+    """wo projection + residual + dense SwiGLU MLP + residual. gate and
+    up carry the reference's checkpoint names (mlp_gate, mlp_up)."""
     b, t, _ = h.shape
-    h = h + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    cdt = cfg.compute_dtype
+    h = h + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cdt)
     x = rms_norm(h, p["mlp_norm"], cfg.rms_eps)
-    y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    w_gate, w_up = p["w_gate"].to(cdt), p["w_up"].to(cdt)
+    with checkpoint_name("mlp_gate"):
+        gate = x @ w_gate
+    with checkpoint_name("mlp_up"):
+        up = x @ w_up
+    y = (F.silu(gate) * up) @ p["w_down"].to(cdt)
     return h + y
 
 
@@ -209,20 +242,71 @@ def _layer(cfg: LlamaConfig, h, p, sin, cos):
     return _attn_out_and_mlp(cfg, p, h, o)
 
 
+# JAX's remat policies (ray_tpu/models/llama.py:382-434) as (save the
+# weight matmuls' outputs, checkpoint names to save). "flash" names the
+# flash op, whose two outputs are the reference's flash_out and flash_lse.
+_QKV = ("qkv_q", "qkv_k", "qkv_v")
+_REMAT_POLICIES = {
+    "dots": (True, ()),
+    "dots_flash": (True, ("flash",)),
+    "dots_flash_qkv": (True, ("flash",) + _QKV),
+    "dots_flash_qkv_mlp": (True, ("flash",) + _QKV + ("mlp_gate", "mlp_up")),
+    "flash_qkv": (False, ("flash",) + _QKV),
+    "nothing": None,
+}
+
+
+def _save_policy(save_dots: bool, names: tuple, ctx, func, *args, **kwargs):
+    """Save an op's outputs if it runs under a listed checkpoint name or,
+    with ``save_dots``, if it is a weight matmul: ``x @ W`` dispatches as
+    ``aten.mm`` (jax's dots_with_no_batch_dims; batched attention
+    products are ``bmm`` and are recomputed)."""
+    if current_name() in names or (save_dots and func is torch.ops.aten.mm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer_fn(cfg: LlamaConfig):
+    """The layer function, wrapped in the config's activation checkpoint."""
+    if cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; expected "
+            "'dots', 'dots_flash', 'dots_flash_qkv', "
+            "'dots_flash_qkv_mlp', 'flash_qkv', or 'nothing'"
+        )
+    spec = _REMAT_POLICIES[cfg.remat_policy]
+    kwargs = {}
+    if spec is not None:  # "nothing": only the layer input survives
+        policy = functools.partial(_save_policy, *spec)
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+
+    def run(h, p, sin, cos):
+        return checkpoint(_layer, cfg, h, p, sin, cos, use_reentrant=False,
+                          **kwargs)
+    return run
+
+
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None):
     """tokens [B, T] int -> logits [B, T, V] in cfg.compute_dtype.
 
     Runs on the device that holds ``params``; attention goes through
-    ``ops.attention`` (the CUDA flash kernel for CUDA tensors)."""
+    ``ops.attention`` (the CUDA flash kernels for CUDA tensors). When
+    gradients are being recorded and ``cfg.remat`` is set, each layer runs
+    under activation checkpointing with ``cfg.remat_policy``; remat
+    changes memory and time, never values."""
     b, t = tokens.shape
     dev = params["embed"].device
     tokens = tokens.to(dev)
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
-    h = params["embed"][tokens.long()]
-    for i in range(cfg.n_layers):
-        h = _layer(cfg, h, _layer_params(params, i), sin, cos)
+    layer_fn = functools.partial(_layer, cfg)
+    if cfg.remat and torch.is_grad_enabled():
+        layer_fn = _remat_layer_fn(cfg)
+    h = _embed(params, cfg, tokens)
+    for p in _unbind_layers(params):
+        h = layer_fn(h, p, sin, cos)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return h @ _w_out(params, cfg)
 
@@ -296,11 +380,13 @@ def _layer_with_cache(cfg: LlamaConfig, h, p, sin, cos, ck, cv, pos: int):
     return _attn_out_and_mlp(cfg, p, h, o)
 
 
+@torch.no_grad()
 def forward_with_cache(params, tokens, cfg: LlamaConfig, cache: dict):
     """Run tokens [B, T] starting at cache['pos']; returns (logits [B,T,V]
     f32, cache). The cache's k/v tensors are updated in place; the
     returned dict shares them and carries pos + T. Covers both prefill
-    (T = prompt length) and decode (T = 1)."""
+    (T = prompt length) and decode (T = 1). Runs without autograd, as
+    inference: params that require grad build no graph."""
     b, t = tokens.shape
     pos = int(cache["pos"])
     if pos + t > cache["k"].shape[2]:
@@ -310,10 +396,10 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache: dict):
     tokens = tokens.to(dev)
     positions = pos + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
-    h = params["embed"][tokens.long()]
-    for i in range(cfg.n_layers):
-        h = _layer_with_cache(cfg, h, _layer_params(params, i), sin, cos,
-                              cache["k"][i], cache["v"][i], pos)
+    h = _embed(params, cfg, tokens)
+    for i, p in enumerate(_unbind_layers(params)):
+        h = _layer_with_cache(cfg, h, p, sin, cos, cache["k"][i],
+                              cache["v"][i], pos)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = (h @ _w_out(params, cfg)).float()
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + t}
@@ -333,6 +419,7 @@ def generate_scan(params, prompt, cfg: LlamaConfig, max_new_tokens: int,
     return torch.cat(out, dim=1).to(torch.int32), cache
 
 
+@torch.no_grad()
 def greedy_generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int,
                     max_len: int | None = None):
     """Prefill + greedy decode. prompt: [B, T0] -> [B, T0 + max_new_tokens]."""

@@ -1,8 +1,8 @@
 """Compute ops: norms, rotary embeddings, attention, losses.
 
-Attention has a hand-written CUDA forward kernel (ops/flash_attention.py,
-csrc/flash_fwd.cu) beside a plain torch version of the same contract,
-which CPU tensors take.
+Attention has hand-written CUDA forward and backward kernels
+(ops/flash_attention.py, csrc/flash_fwd.cu, csrc/flash_bwd.cu) beside
+plain torch versions of the same contracts, which CPU tensors take.
 """
 
 from ray_tpu_torch.ops.norms import rms_norm  # noqa: F401

@@ -154,3 +154,28 @@ def test_pos_clamps_and_inactive_slots_hold_their_token(models):
     toks, cache, last = tde.decode_chunk(tparams, cache, tok, active, tcfg, 4)
     assert cache["pos"].tolist() == [7, 2]  # 5 + 4 clamped at max_len - 1
     assert toks[1].tolist() == [9, 9, 9, 9] and int(last[1]) == 9
+
+
+def test_engine_with_params_that_require_grad(models):
+    """Weights a trainer publishes require grad: the engine and the cached
+    forward run without autograd, give the same tokens, and hand out no
+    tensor that requires grad."""
+    _, _, tcfg, tparams = models
+    prompts = _prompts()
+    want = [s.tokens for s in _run(tde.RaggedDecoder(tparams, tcfg,
+                                                     device="cpu", **ENGINE),
+                                   prompts)]
+    grad_params = {k: ({kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.clone().requires_grad_())
+                   for k, v in tparams.items()}
+    eng = tde.RaggedDecoder(grad_params, tcfg, device="cpu", **ENGINE)
+    assert [s.tokens for s in _run(eng, prompts)] == want
+    assert not any(x.requires_grad for x in (eng.cache["k"], eng.cache["v"],
+                                             eng.cache["pos"], eng.cur_tok))
+    toks = torch.from_numpy(prompts[0][None])
+    cache = tl.init_cache(tcfg, 1, 32, device="cpu")
+    logits, cache = tl.forward_with_cache(grad_params, toks, tcfg, cache)
+    assert not logits.requires_grad and not cache["k"].requires_grad
+    out = tl.greedy_generate(grad_params, toks, tcfg, 4)
+    assert not out.requires_grad
+    assert out[0, len(prompts[0]):].tolist() == want[0][:4]

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch import train
 from ray_tpu_torch.models import decode_engine, llama
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -32,7 +33,10 @@ def _imported_roots(path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"chip_smoke.py", "ray_tpu_torch/ops/flash_attention.py",
-            "ray_tpu_torch/models/decode_engine.py"} <= names
+            "ray_tpu_torch/models/decode_engine.py",
+            "ray_tpu_torch/train/optim.py",
+            "ray_tpu_torch/train/step.py"} <= names
+    assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -57,3 +61,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     prompt_buckets=(8,))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.from_jax_params({}, cfg)
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.LlamaConfig.tiny()
+    opt = train.fused_adamw()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.init_train_state(
+            lambda dev: llama.init_params(cfg, device=dev, master=True), opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_params(cfg, master=True)
