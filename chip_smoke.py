@@ -43,9 +43,12 @@ PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 # both sides run full f32 (TF32 off, set below).
 TOL = {torch.bfloat16: dict(out=2e-2, lse=1e-3),
        torch.float32: dict(out=1e-4, lse=1e-4)}
-# (name, B, Hq, Hkv, T, S, D, causal, dtype); the first is the main path's
+# (name, B, Hq, Hkv, T, S, D, causal, dtype); the first three are the
+# main paths' (1B scoring, 350m training, long-context training)
 FLASH_CASES = [
     ("main_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16),
+    ("main_350m_train", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16),
+    ("long_ctx_350m", 1, 8, 8, 16384, 16384, 128, True, torch.bfloat16),
     ("multi_tile_s4096", 1, 16, 8, 4096, 4096, 128, True, torch.bfloat16),
     ("decode_t1_s300", 2, 16, 8, 1, 300, 128, True, torch.bfloat16),
     ("empty_rows_t64_s32", 2, 16, 8, 64, 32, 128, True, torch.bfloat16),
@@ -72,8 +75,15 @@ BWD_CASES = [
     ("f32_gqa_d128", 1, 8, 4, 300, 300, 128, True, torch.float32, "fused"),
     ("d16", 2, 4, 2, 200, 200, 16, True, torch.bfloat16, "fused"),
     ("d32", 1, 8, 2, 100, 100, 32, True, torch.bfloat16, "fused"),
+    ("long_ctx_350m", 1, 8, 8, 16384, 16384, 128, True, torch.bfloat16, "split"),
     ("test_ops_long_kv_f32", 1, 1, 1, 256, 16384, 32, True, torch.float32, "split"),
     ("gqa_d128_s12288", 1, 16, 8, 1024, 12288, 128, True, torch.bfloat16, "split"),
+    # ragged edges on the two-kernel path: T over 64-row blocks, S over
+    # 32-key tiles and past 8192 keys
+    ("ragged_split_gqa", 1, 4, 2, 333, 8777, 64, True, torch.bfloat16, "split"),
+    ("ragged_split_noncausal", 1, 4, 4, 999, 9001, 128, False, torch.bfloat16, "split"),
+    ("ragged_split_f32", 1, 2, 1, 77, 8200, 32, True, torch.float32, "split"),
+    ("empty_rows_split", 1, 2, 1, 8300, 8200, 32, True, torch.bfloat16, "split"),
 ]
 BWD_KERNELS = {
     "flash_bwd_fused": (fa.flash_bwd_fused, fa.flash_bwd_fused_plain, ("dq", "dk", "dv")),
@@ -390,6 +400,38 @@ def phase_bwd_kernel_vs_plain():
     return results
 
 
+# (B, Hq, Hkv, T, S, D), bf16, causal: both backward routes timed on each
+ROUTE_SHAPES = [(8, 8, 8, 2048, 2048, 128), (1, 8, 8, 8192, 8192, 128),
+                (1, 8, 8, 12288, 12288, 128), (1, 8, 8, 16384, 16384, 128),
+                (1, 16, 8, 1024, 12288, 128)]
+
+
+def phase_bwd_routes():
+    """The gate's two routes on the same inputs, in turns fused, dq + dkv,
+    dq + dkv, fused: the data behind _use_fused_bwd's threshold (timed
+    only; each route is held to its plain version above)."""
+    rows = []
+    for i, (b, hq, hkv, t, s, d) in enumerate(ROUTE_SHAPES):
+        args = bwd_inputs(b, hq, hkv, t, s, d, torch.bfloat16, True,
+                          SEED + 700 + i)
+        fused = lambda: fa.flash_bwd_fused(*args, causal=True)  # noqa: E731
+
+        def split():
+            fa.flash_bwd_dq(*args, causal=True)
+            fa.flash_bwd_dkv(*args, causal=True)
+
+        f_a, s_a, s_b, f_b = time_ms(fused), time_ms(split), time_ms(split), time_ms(fused)
+        row = {"shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
+               "fused_ms": [f_a, f_b], "dq_plus_dkv_ms": [s_a, s_b],
+               "fused_over_split": min(f_a, f_b) / min(s_a, s_b),
+               "gate_takes": "fused" if fa._use_fused_bwd(t, s) else "split"}
+        emit({"phase": "bwd_routes", **row})
+        rows.append(row)
+        del args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def train_config(size, remat_policy, **over):
     """bench.py's training configuration: the named size at full width,
     vocab 32128, bf16 compute, remat on with ``remat_policy``."""
@@ -645,7 +687,7 @@ def sdpa_bwd_ms(q, k, v, do):
 def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
     """A kernel at `shape` (B, Hq, Hkv, T, S, D; bf16, causal), in turns
     plain, kernel, kernel, plain, library; with its error against the
-    plain version there and its bound."""
+    plain version there, held to TOL / BWD_TOL, and its bound."""
     b, hq, hkv, t, s, d = shape
     dtype = torch.bfloat16
     if kernel == "flash_fwd":
@@ -655,6 +697,12 @@ def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
         ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
         err = max((out.float() - ref_out.float()).abs().max().item(),
                   (lse - ref_lse).abs().max().item())
+        tol = TOL[dtype]
+        if not (torch.allclose(out.float(), ref_out.float(), atol=tol["out"],
+                               rtol=tol["out"])
+                and torch.allclose(lse, ref_lse, atol=tol["lse"], rtol=0)):
+            raise AssertionError(f"flash_fwd disagrees with its plain version "
+                                 f"at {shape}: {err} (tol {tol})")
         del out, lse, ref_out, ref_lse
         run = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
         run_plain = lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)  # noqa: E731
@@ -666,6 +714,9 @@ def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
         errs, got = bwd_errors(kernel, args, True)
         del got
         err = max(e for e, _ in errs.values())
+        if any(rel > BWD_TOL[dtype] for _, rel in errs.values()):
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at {shape}: {errs} (tol {BWD_TOL[dtype]})")
         fn, plain, _ = BWD_KERNELS[kernel]
         run = lambda: fn(*args, causal=True)  # noqa: E731
         run_plain = lambda: plain(*args, causal=True)  # noqa: E731
@@ -739,6 +790,7 @@ def main() -> None:
     phase_build()
     phase_kernel_vs_plain()
     phase_bwd_kernel_vs_plain()
+    phase_bwd_routes()
     cfg = bench_1b_config()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(cfg, g, device="cuda")

@@ -81,6 +81,10 @@ def decode_chunk(params, cache, tok, active, cfg: LlamaConfig, chunk: int):
     updated in place. Returns ([B, chunk] tokens, cache, [B] last token)."""
     max_len = cache["k"].shape[2]
     w_out = llama._w_out(params, cfg)
+    # once per chunk, not per token: the table in the compute dtype (as
+    # llama._embed casts it) and the per-layer views
+    embed = params["embed"].to(cfg.compute_dtype)
+    layers = llama._unbind_layers(params)
     k_all, v_all, pos = cache["k"], cache["v"], cache["pos"]
     step_inc = active.to(pos.dtype)
     t = tok
@@ -88,8 +92,8 @@ def decode_chunk(params, cache, tok, active, cfg: LlamaConfig, chunk: int):
     for _ in range(chunk):
         sin, cos = llama.rotary_embedding(pos[:, None], cfg.head_dim,
                                           cfg.rope_theta)
-        h = llama._embed(params, cfg, t[:, None])  # [B, 1, D]
-        for i, p in enumerate(llama._unbind_layers(params)):
+        h = embed[t.long()[:, None]]  # [B, 1, D]
+        for i, p in enumerate(layers):
             h = _layer_decode_ragged(cfg, h, p, sin, cos, k_all[i], v_all[i],
                                      pos)
         h = llama.rms_norm(h, params["final_norm"], cfg.rms_eps)

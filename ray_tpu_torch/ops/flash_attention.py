@@ -274,13 +274,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
 def _use_fused_bwd(t: int, s: int) -> bool:
     """True: one fused kernel; False: the dq and dkv kernels.
 
-    The reference's rule at its default 1024-key blocks: fused while the
-    keys span at most 8 tiles (S <= 8192). On the card the reason is the
-    fused kernel's dq: every key tile adds its share of dq into one f32
-    buffer by atomics, so the atomic traffic grows with the number of key
-    tiles, while the dq kernel writes dq once. The reference's
-    T-divisibility condition has no counterpart: the kernels mask ragged
-    edges. ``t`` is taken to keep the reference's signature."""
+    The reference's rule at its default 1024-key blocks, kept for parity
+    with the JAX package: fused while the keys span at most 8 tiles (S <=
+    8192). On the H100 it is not a speed rule: the fused kernel timed
+    1-4% faster than dq + dkv at every S from 2048 to 16384 (chip_smoke.py
+    phase ``bwd_routes``). What the two-kernel route does give past 8192
+    keys is a dq that is the same from run to run (no atomics). The
+    reference's T-divisibility condition has no counterpart: the kernels
+    mask ragged edges. ``t`` is taken to keep the reference's signature."""
     del t
     return cdiv(s, _BLOCK_K) <= _MAX_K_TILES
 
