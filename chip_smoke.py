@@ -10,18 +10,23 @@ outputs are scored again), then the training path: Llama-350m at B=8 x
 T=2048 and Llama-1B at B=2 x T=2048, both at full width and depth
 (bench.py's headline configurations), a 2-layer 350m-width step at
 T=16384 that takes the dq + dkv backward kernels, and an f32 check of
-every gradient against the reference attention. It checks the results
-and prints one JSON line per phase. The line before the last lists
-every kernel with its launches on the main paths, error, time, the
-plain version's time, the library call's time and the card's bound; the
-last line is {"ok": true, "device": {...}}. Any failure raises: the exit
-code is then non-zero and no result line is printed. Needs one CUDA
-device.
+every gradient against the reference attention. Every bf16 head_dim-128
+forward and fused backward on those paths must go through the Hopper
+kernels (flash_fwd_sm90, flash_bwd_fused_sm90), which the launch counts
+by entry point show. It checks the results and prints one JSON line per
+phase. The line before the last lists every main-path kernel with its
+launches on the main paths, error, time (eager, and replayed from a CUDA
+graph), the plain version's time, the library call's time, the card's
+bound, its share of that bound and ptxas's registers; the last line is
+{"ok": true, "device": {...}}. Any
+failure raises: the exit code is then non-zero and no result line is
+printed. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -44,7 +49,9 @@ PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 TOL = {torch.bfloat16: dict(out=2e-2, lse=1e-3),
        torch.float32: dict(out=1e-4, lse=1e-4)}
 # (name, B, Hq, Hkv, T, S, D, causal, dtype); the first three are the
-# main paths' (1B scoring, 350m training, long-context training)
+# main paths' (1B scoring, 350m training, long-context training). bf16 at
+# D=128 takes flash_fwd_sm90 (the edges of its 128-row q tiles and
+# 128-key tiles below), the rest flash_fwd.
 FLASH_CASES = [
     ("main_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16),
     ("main_350m_train", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16),
@@ -52,6 +59,11 @@ FLASH_CASES = [
     ("multi_tile_s4096", 1, 16, 8, 4096, 4096, 128, True, torch.bfloat16),
     ("decode_t1_s300", 2, 16, 8, 1, 300, 128, True, torch.bfloat16),
     ("empty_rows_t64_s32", 2, 16, 8, 64, 32, 128, True, torch.bfloat16),
+    ("ragged_gqa2_t333_s777", 2, 8, 4, 333, 777, 128, True, torch.bfloat16),
+    ("ragged_noncausal_gqa4", 1, 8, 2, 333, 777, 128, False, torch.bfloat16),
+    ("empty_rows_gqa4_t300_s100", 1, 8, 2, 300, 100, 128, True, torch.bfloat16),
+    ("s_lt_128_t77_s50", 2, 4, 4, 77, 50, 128, True, torch.bfloat16),
+    ("s_lt_128_noncausal", 1, 4, 2, 200, 90, 128, False, torch.bfloat16),
     ("noncausal_mha_d64", 2, 12, 12, 333, 777, 64, False, torch.bfloat16),
     ("f32_gqa_d128", 1, 8, 4, 300, 300, 128, True, torch.float32),
     ("tiny_d16", 2, 4, 2, 200, 200, 16, True, torch.bfloat16),
@@ -66,10 +78,18 @@ FLASH_CASES = [
 # f32 on both sides (TF32 off); only the order of the sums differs.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # (name, B, Hq, Hkv, T, S, D, causal, dtype, route); the first case of
-# each route is its main path's shape
+# each route is its main path's shape. The fused route at bf16 D=128
+# takes flash_bwd_fused_sm90 (the edges of its 128-key blocks and 64-row
+# q tiles below), the rest flash_bwd_fused.
 BWD_CASES = [
     ("main_350m", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
     ("gqa_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
+    ("ragged_gqa2_t333_s777", 2, 8, 4, 333, 777, 128, True, torch.bfloat16, "fused"),
+    ("ragged_noncausal_gqa4", 1, 8, 2, 333, 777, 128, False, torch.bfloat16, "fused"),
+    ("empty_rows_gqa4_t300_s100", 1, 8, 2, 300, 100, 128, True, torch.bfloat16, "fused"),
+    ("s_lt_128_t77_s50", 2, 4, 4, 77, 50, 128, True, torch.bfloat16, "fused"),
+    ("s_lt_128_noncausal", 1, 4, 2, 200, 90, 128, False, torch.bfloat16, "fused"),
+    ("decode_t1_s300", 2, 8, 4, 1, 300, 128, True, torch.bfloat16, "fused"),
     ("ragged_noncausal_d64", 2, 12, 12, 333, 777, 64, False, torch.bfloat16, "fused"),
     ("empty_rows_t64_s32", 2, 4, 2, 64, 32, 64, True, torch.bfloat16, "fused"),
     ("f32_gqa_d128", 1, 8, 4, 300, 300, 128, True, torch.float32, "fused"),
@@ -93,6 +113,17 @@ BWD_KERNELS = {
 # tensor-core products per kept (q, k) pair and head, 2*D flops each
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
             "flash_bwd_dkv": 4}
+LIBS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_sm90")
+# the entry point a main path takes at bf16 D=128 -> (its kernel function
+# in ptxas's report, the C function that returns its shared memory)
+KERNEL_SYMBOLS = {
+    "flash_fwd_sm90": ("flash_fwd_sm90_kernel", "flash_fwd_sm90_smem_bytes"),
+    "flash_bwd_fused_sm90": ("flash_bwd_fused_sm90_kernel",
+                             "flash_bwd_fused_sm90_smem_bytes"),
+    "flash_bwd_dq": ("flash_bwd_dq_bf16ILi128EE", None),
+    "flash_bwd_dkv": ("flash_bwd_kv_bf16ILi128ELb0EE", None),
+}
+NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
 
 
 def emit(obj) -> None:
@@ -109,6 +140,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call, replayed from a CUDA graph of `iters`
+    calls: no host time between the launches, which an eager loop of a
+    short kernel can otherwise measure."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as it requires
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -170,26 +225,78 @@ def phase_device():
     return name, smi, PEAKS["pcie" if "PCIe" in name else "sxm"]
 
 
+def ptxas_report(text):
+    """ptxas -v's report per kernel function: {mangled name: {"registers",
+    "spill_bytes"}}; and its warnings (wgmma serialised, setmaxnreg
+    ignored, ...)."""
+    funcs, name, warnings = {}, None, []
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            funcs[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            funcs[name]["registers"] = int(m.group(1))
+        if "warning" in ln:
+            warnings.append(ln.strip())
+    return funcs, warnings
+
+
 def phase_build():
+    """Builds every library (one nvcc each, together) and reads ptxas's
+    report: the Hopper kernels must not spill. Returns {entry point:
+    {"registers", "spill_bytes", "smem_bytes"}} for KERNEL_SYMBOLS."""
     t0 = time.perf_counter()
-    paths = _kernels.build(["flash_fwd", "flash_bwd"])  # one nvcc each, together
-    ptxas = {}
-    for name, path in paths.items():
+    paths = _kernels.build(list(LIBS))
+    seconds = time.perf_counter() - t0
+    funcs, warnings = {}, {}
+    for lib, path in paths.items():
         log = path.with_suffix(".log")
-        text = log.read_text() if log.exists() else "(cached build)"
-        ptxas[name] = [ln.strip() for ln in text.splitlines()
-                       if "registers" in ln or "spill" in ln or
-                       "Compiling entry" in ln][:120]
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
-          "libs": {k: v.name for k, v in paths.items()}, "ptxas": ptxas})
+        f, w = ptxas_report(log.read_text() if log.exists() else "")
+        funcs.update(f)
+        warnings[lib] = w
+    info = {}
+    for entry, (symbol, smem_fn) in KERNEL_SYMBOLS.items():
+        found = [v for k, v in funcs.items() if symbol in k]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas report: {len(found)} functions match "
+                                 f"{symbol}")
+        info[entry] = dict(found[0])
+        if smem_fn:
+            lib = _kernels.load(fa._LIBRARY[entry])
+            info[entry]["smem_bytes"] = getattr(lib, smem_fn)()
+    spills = {e: i for e, i in info.items()
+              if e in NEW_KERNELS and i.get("spill_bytes", 1) != 0}
+    emit({"phase": "build", "seconds": round(seconds, 2),
+          "libs": {k: v.name for k, v in paths.items()}, "kernels": info,
+          "ptxas_warnings": warnings, "ok": not spills})
+    if spills:
+        raise AssertionError(f"the Hopper kernels spill: {spills}")
+    return info
+
+
+def launched_only(variant, counts):
+    """Raise unless `counts` (launches by entry point) show `variant` and
+    no other kernel."""
+    others = {k: n for k, n in counts.items() if n and k != variant}
+    if counts.get(variant, 0) == 0 or others:
+        raise AssertionError(f"expected launches of {variant} only, got {counts}")
 
 
 def phase_kernel_vs_plain():
     results = {}
     for i, (name, b, hq, hkv, t, s, d, causal, dtype) in enumerate(FLASH_CASES):
         q, k, v = flash_inputs(b, hq, hkv, t, s, d, dtype, SEED + i)
+        variant = fa.kernel_variant("flash_fwd", "cuda", dtype, d)
+        fa.reset_launch_count()
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        launched_only(variant, fa.launch_counts())
         ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
@@ -198,7 +305,7 @@ def phase_kernel_vs_plain():
               and torch.allclose(out.float(), ref_out.float(),
                                  atol=tol["out"], rtol=tol["out"])
               and torch.allclose(lse, ref_lse, atol=tol["lse"], rtol=0))
-        emit({"phase": "kernel_vs_plain", "case": name,
+        emit({"phase": "kernel_vs_plain", "case": name, "variant": variant,
               "shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
               "causal": causal, "dtype": str(dtype).split(".")[-1],
               "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
@@ -209,6 +316,17 @@ def phase_kernel_vs_plain():
                                  f"lse {err_lse} (tol {tol})")
         results[name] = max(err_out, err_lse)
         del q, k, v, out, lse, ref_out, ref_lse
+    # a tensor that TMA cannot read (not 16-byte aligned) is refused
+    q, k, v = flash_inputs(1, 2, 2, 64, 64, 128, torch.bfloat16, SEED)
+    shifted = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    q_bad = shifted[1:1 + q.numel()].view(q.shape).copy_(q)
+    try:
+        fa.flash_attention_fwd(q_bad, k, v, causal=True)
+    except ValueError as err:
+        emit({"phase": "misaligned_refused", "data_ptr_mod_16":
+              q_bad.data_ptr() % 16, "error": str(err)})
+    else:
+        raise AssertionError("flash_fwd_sm90 took a misaligned q")
     torch.cuda.empty_cache()
     return results
 
@@ -228,9 +346,11 @@ def phase_scoring(cfg, params):
     fa.reset_launch_count()
     logits = llama.forward(params, toks, cfg)
     torch.cuda.synchronize()
-    launches = fa.launch_count()
+    counts = fa.launch_counts()
+    launched_only("flash_fwd_sm90", counts)
+    launches = counts["flash_fwd_sm90"]
     if launches != cfg.n_layers:
-        raise AssertionError(f"scoring forward launched flash_fwd "
+        raise AssertionError(f"scoring forward launched flash_fwd_sm90 "
                              f"{launches} times, expected {cfg.n_layers}")
     ref_cfg = llama.LlamaConfig(**{**cfg.__dict__, "use_flash": False})
     ref = llama.forward(params, toks, ref_cfg)
@@ -254,7 +374,7 @@ def phase_scoring(cfg, params):
           "reference_attention_forward_ms": ms_ref, "ok": ok})
     if not ok:
         raise AssertionError(f"1B logits: rel err {rel} > {rel_tol}")
-    return launches
+    return counts
 
 
 def phase_serving(cfg, params):
@@ -290,6 +410,7 @@ def phase_serving(cfg, params):
         for p, s in zip(prompts, streams)])).cuda()
     logits = llama.forward(params, seqs, cfg)
     torch.cuda.synchronize()
+    launched_only("flash_fwd_sm90", fa.launch_counts())
     score_launches = fa.launch_count() - engine_launches
     if score_launches != cfg.n_layers:
         raise AssertionError(f"scoring the served sequences launched "
@@ -307,7 +428,7 @@ def phase_serving(cfg, params):
           "scoring_flash_launches": score_launches,
           "served_equals_teacher_forced_argmax": match,
           "stats": eng.stats()})
-    return engine_launches + score_launches
+    return fa.launch_counts()
 
 
 def phase_exactness_f32():
@@ -351,12 +472,23 @@ def bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, seed):
     return q, k, v, do, lse, delta
 
 
+def entry_point(kernel, dtype, d):
+    """The C entry point that wrapper `kernel` launches on the card."""
+    if kernel in ("flash_fwd", "flash_bwd_fused"):
+        return fa.kernel_variant(kernel, "cuda", dtype, d)
+    return kernel
+
+
 def bwd_errors(kernel, args, causal):
     """Run a backward kernel and its plain version on the same inputs:
-    {output: (max abs error, error / max |plain|)}."""
+    {output: (max abs error, error / max |plain|)}. Raises unless the
+    wrapper launched the entry point that `entry_point` names."""
     fn, plain, names = BWD_KERNELS[kernel]
+    fa.reset_launch_count()
     got = fn(*args, causal=causal)
     torch.cuda.synchronize()
+    launched_only(entry_point(kernel, args[0].dtype, args[0].shape[3]),
+                  fa.launch_counts())
     want = plain(*args, causal=causal)
     if len(names) == 1:
         got, want = (got,), (want,)
@@ -385,6 +517,7 @@ def phase_bwd_kernel_vs_plain():
             if t > s and causal and "dq" in errs:  # rows that see no key
                 ok = ok and bool((got[0][:, :, :t - s] == 0).all())
             emit({"phase": "bwd_kernel_vs_plain", "kernel": kernel, "case": name,
+                  "entry_point": entry_point(kernel, dtype, d),
                   "shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
                   "causal": causal, "dtype": str(dtype).split(".")[-1],
                   "max_abs_err": {k: e for k, (e, _) in errs.items()},
@@ -684,16 +817,20 @@ def sdpa_bwd_ms(q, k, v, do):
     return both - only_fwd, both, only_fwd
 
 
-def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
-    """A kernel at `shape` (B, Hq, Hkv, T, S, D; bf16, causal), in turns
-    plain, kernel, kernel, plain, library; with its error against the
-    plain version there, held to TOL / BWD_TOL, and its bound."""
+def time_kernel(entry, shape, peaks, seed, plain_iters=5):
+    """C entry point `entry` at `shape` (B, Hq, Hkv, T, S, D; bf16, causal),
+    through its wrapper, in turns plain, kernel, kernel, plain, library;
+    with its error against the plain version there, held to TOL / BWD_TOL,
+    and its bound."""
     b, hq, hkv, t, s, d = shape
     dtype = torch.bfloat16
+    kernel = entry.removesuffix("_sm90")  # the wrapper's name
     if kernel == "flash_fwd":
         q, k, v = flash_inputs(b, hq, hkv, t, s, d, dtype, seed)
+        fa.reset_launch_count()
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         torch.cuda.synchronize()
+        launched_only(entry, fa.launch_counts())
         ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
         err = max((out.float() - ref_out.float()).abs().max().item(),
                   (lse - ref_lse).abs().max().item())
@@ -707,8 +844,8 @@ def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
         run = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
         run_plain = lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)  # noqa: E731
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = {"library_ms": time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                                  enable_gqa=True))}
+        lib_run = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        lib = {"library_ms": time_ms(lib_run), "library_graph_ms": graph_ms(lib_run)}
     else:
         args = bwd_inputs(b, hq, hkv, t, s, d, dtype, True, seed)
         errs, got = bwd_errors(kernel, args, True)
@@ -723,6 +860,7 @@ def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
         lib = None
     plain_a = time_ms(run_plain, iters=plain_iters, warmup=1)
     kern_a, kern_b = time_ms(run), time_ms(run)
+    kern_graph = graph_ms(run)
     plain_b = time_ms(run_plain, iters=plain_iters, warmup=1)
     if lib is None:
         q, k, v, do = args[:4]
@@ -732,8 +870,9 @@ def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
     bound_ms, bound_by, flops, nbytes = flash_bound(
         b, hq, hkv, t, s, d, True, dtype, peaks, kernel)
     ms = min(kern_a, kern_b)
-    row = {"kernel": kernel, "shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
-           "kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b],
+    row = {"kernel": entry, "shape": dict(B=b, Hq=hq, Hkv=hkv, T=t, S=s, D=d),
+           "kernel_ms": [kern_a, kern_b], "kernel_graph_ms": kern_graph,
+           "plain_ms": [plain_a, plain_b],
            **lib, "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": bound_by, "achieved_tflops": flops / (ms / 1e3) / 1e12,
            "share_of_bound": bound_ms / ms, "max_abs_err": err}
@@ -742,9 +881,12 @@ def time_kernel(kernel, shape, peaks, seed, plain_iters=5):
     return row
 
 
+# the C entry points the main paths launch (all at bf16, D=128)
 SOURCES = {
-    "flash_fwd": ("ray_tpu_torch/csrc/flash_fwd.cu", "ray_tpu/ops/flash_attention.py:294"),
-    "flash_bwd_fused": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:575"),
+    "flash_fwd_sm90": ("ray_tpu_torch/csrc/flash_fwd_sm90.cu",
+                       "ray_tpu/ops/flash_attention.py:294"),
+    "flash_bwd_fused_sm90": ("ray_tpu_torch/csrc/flash_bwd_sm90.cu",
+                             "ray_tpu/ops/flash_attention.py:575"),
     "flash_bwd_dq": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:678"),
     "flash_bwd_dkv": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:707"),
 }
@@ -752,14 +894,17 @@ SOURCES = {
 # (and its 350m training shape), the fused backward's 350m training
 # shape, and the dq/dkv kernels' at 350m width with T = S = 16384
 MAIN_SHAPES = {
-    "flash_fwd": (2, 16, 8, 2048, 2048, 128),
-    "flash_bwd_fused": (8, 8, 8, 2048, 2048, 128),
+    "flash_fwd_sm90": (2, 16, 8, 2048, 2048, 128),
+    "flash_bwd_fused_sm90": (8, 8, 8, 2048, 2048, 128),
     "flash_bwd_dq": (1, 8, 8, 16384, 16384, 128),
     "flash_bwd_dkv": (1, 8, 8, 16384, 16384, 128),
 }
 
 
-def phase_kernels_line(launches, peaks):
+def phase_kernels_line(launches, peaks, build_info):
+    """One entry per main-path kernel: its launches on the main paths, its
+    time, error, bound, plain and library times, share of bound, and
+    ptxas's registers (and the shared memory of the Hopper kernels)."""
     kernels = []
     for i, (kernel, shape) in enumerate(MAIN_SHAPES.items()):
         row = time_kernel(kernel, shape, peaks, SEED + 400 + i,
@@ -770,15 +915,24 @@ def phase_kernels_line(launches, peaks):
                  "max_abs_err": row["max_abs_err"], "ms": min(row["kernel_ms"]),
                  "plain_ms": min(row["plain_ms"]), "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                 "shape": row["shape"]}
-        if kernel == "flash_fwd":
-            train_row = time_kernel(kernel, MAIN_SHAPES["flash_bwd_fused"],
+                 "share_of_bound": row["share_of_bound"], "shape": row["shape"],
+                 "graph_ms": row["kernel_graph_ms"], **build_info[kernel]}
+        if "library_graph_ms" in row:
+            entry["library_graph_ms"] = row["library_graph_ms"]
+        if kernel == "flash_fwd_sm90":
+            train_row = time_kernel(kernel, MAIN_SHAPES["flash_bwd_fused_sm90"],
                                     peaks, SEED + 410)
             entry["train_350m"] = {k: train_row[k] for k in (
-                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err")}
+                "shape", "kernel_ms", "kernel_graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_graph_ms", "share_of_bound",
+                "max_abs_err")}
         kernels.append(entry)
     return kernels
+
+
+def expected(**launches):
+    """Launches per step by entry point: those named, 0 for the rest."""
+    return {**{k: 0 for k in fa.launch_counts()}, **launches}
 
 
 def main() -> None:
@@ -787,7 +941,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 checks are full f32
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
-    phase_build()
+    build_info = phase_build()
     phase_kernel_vs_plain()
     phase_bwd_kernel_vs_plain()
     phase_bwd_routes()
@@ -799,8 +953,8 @@ def main() -> None:
     # each main path: counts set to 0 just before it, read just after
     by_path = {}
     with torch.inference_mode():
-        by_path["scoring_1b"] = {"flash_fwd": phase_scoring(cfg, params)}
-        by_path["serving_1b"] = {"flash_fwd": phase_serving(cfg, params)}
+        by_path["scoring_1b"] = phase_scoring(cfg, params)
+        by_path["serving_1b"] = phase_serving(cfg, params)
         del params
         torch.cuda.empty_cache()
         phase_exactness_f32()
@@ -808,18 +962,16 @@ def main() -> None:
     n1b = llama.llama2_size("1b").n_layers
     by_path["train_350m"] = phase_train(
         "train_350m", train_config("350m", "dots_flash_qkv_mlp"), 8, 2048,
-        {"flash_fwd": n350, "flash_bwd_fused": n350, "flash_bwd_dq": 0,
-         "flash_bwd_dkv": 0}, peaks)
+        expected(flash_fwd_sm90=n350, flash_bwd_fused_sm90=n350), peaks)
     by_path["train_1b"] = phase_train(
         "train_1b", train_config("1b", "flash_qkv"), 2, 2048,
-        {"flash_fwd": n1b, "flash_bwd_fused": n1b, "flash_bwd_dq": 0,
-         "flash_bwd_dkv": 0}, peaks)
+        expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b), peaks)
     by_path["train_long_context"] = phase_train(
         "train_long_context",
         train_config("350m", "dots_flash_qkv_mlp", n_layers=2,
                      max_seq_len=16384), 1, 16384,
-        {"flash_fwd": 2, "flash_bwd_fused": 0, "flash_bwd_dq": 2,
-         "flash_bwd_dkv": 2}, peaks, warm=1, timed=2)
+        expected(flash_fwd_sm90=2, flash_bwd_dq=2, flash_bwd_dkv=2), peaks,
+        warm=1, timed=2)
     phase_grad_exactness_f32()
     phase_sr_card_vs_cpu()
     phase_profile("profile_train_350m", train_config("350m", "dots_flash_qkv_mlp"),
@@ -832,7 +984,7 @@ def main() -> None:
             raise AssertionError(f"{kernel} was launched no time on the main "
                                  f"paths: {by_path}")
     emit({"phase": "launches_by_path", **by_path})
-    kernels = phase_kernels_line(launches, peaks)
+    kernels = phase_kernels_line(launches, peaks, build_info)
     emit({"phase": "memory",
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
           "script_seconds": time.perf_counter() - t_start})

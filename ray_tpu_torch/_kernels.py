@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface, loaded through ``ctypes``. The build happens at the
 first launch, never at import, into ``build/ray_tpu_torch/`` at the root
-of the checkout, keyed by a hash of the source and the flags. A missing
-``nvcc`` or a failed build raises.
+of the checkout, keyed by a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags. A missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` is built: keyed by the source, the headers
+    it may include (every ``csrc/*.cuh``) and the flags, so an edit to any
+    of them builds anew."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, Path]:

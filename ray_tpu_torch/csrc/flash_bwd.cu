@@ -4,7 +4,9 @@
 //
 //   flash_bwd_fused  replaces `_flash_bwd_fused` (the pl.pallas_call at
 //                    :575, body `_bwd_fused_kernel` :432-529): dq, dk and dv
-//                    in one visit of each live (q tile, k tile) pair.
+//                    in one visit of each live (q tile, k tile) pair. bf16
+//                    at head_dim 128 (the 350m and 1B training shapes) is
+//                    flash_bwd_sm90.cu's; this one takes 16/32/64 and f32.
 //   flash_bwd_dkv    replaces `_flash_bwd`'s dkv kernel (:707, body
 //                    `_dkv_kernel` :368-429): the fused loop without dq.
 //   flash_bwd_dq     replaces `_flash_bwd`'s dq kernel (:678, body
@@ -57,7 +59,8 @@
 //   the live key tiles of 32 (double-buffered by cp.async, as the
 //   forward); dq accumulates in f32 registers and is written once, with
 //   no atomics, so it is deterministic.
-// Simple first: wgmma, TMA and warp specialisation are later work.
+// The fused kernel's wgmma/TMA redesign for bf16 at head_dim 128 is
+// flash_bwd_sm90.cu; dq and dkv keep this design (ROADMAP Queue 2).
 // f32 runs plain-FMA kernels (no TF32) to keep full f32 precision.
 //
 // Built by ray_tpu_torch/_kernels.py with
@@ -862,7 +865,9 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t s) {
     case 16: return launch<T, 16, M>(a, s);
     case 32: return launch<T, 32, M>(a, s);
     case 64: return launch<T, 64, M>(a, s);
-    case 128: return launch<T, 128, M>(a, s);
+    case 128:  // the fused bf16 kernel at 128 is flash_bwd_sm90's
+      if constexpr (sizeof(T) == 2 && M == Mode::kFused) return cudaErrorInvalidValue;
+      else return launch<T, 128, M>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

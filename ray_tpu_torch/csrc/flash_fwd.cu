@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 and f32.
+// Flash-attention forward for Hopper (sm_90a): bf16 at head_dim 16/32/64,
+// and f32. bf16 at head_dim 128, the shape of every main path, is
+// flash_fwd_sm90.cu's (TMA, wgmma, warp specialisation).
 //
 // Replaces the TPU forward of ray_tpu/ops/flash_attention.py: `_flash_fwd`
 // (the pl.pallas_call at :294), whose bodies are `_fwd_kernel_1pass`
@@ -14,10 +16,9 @@
 // output 0 with lse = +1e30. lse is the natural log, stored [B,Hq,T] f32.
 // Ragged T and S edges are masked here, so no block divisibility is needed.
 //
-// What bounds it on this card: at the main-path shape (B=2, T=S=2048,
-// Hq=16, Hkv=8, D=128, causal) the two products are ~3.4e10 flops against
-// ~51 MB of q/k/v/out/lse, far above the H100's ~295 flops per byte, so
-// it is bound by tensor-core operations (~35 us at 989 TFLOP/s bf16).
+// What bounds it on this card: causal attention over a few thousand keys
+// does ~D*S flops per byte of q/k/v/out, far above the H100's ~295 flops
+// per byte, so it is bound by tensor-core operations.
 // What the design does about it (bf16): each block takes 64 query rows of
 // one head, four warps of 16 rows; a warp keeps its q fragments, its
 // score tile and its output accumulator in registers and runs both
@@ -30,9 +31,9 @@
 // conflicts). Key tiles wholly above the causal diagonal are never visited
 // (about half the work), the heaviest query tiles start first, and only
 // tiles that straddle the diagonal or the ragged S edge pay for the mask.
-// It reaches ~6x its bound and ~2.7x the time of the library's attention
-// (PERF.md): two query m-tiles per warp, wgmma, TMA and warp
-// specialisation are later work.
+// At head_dim 128 it reached ~6x its bound and ~2.7x the time of the
+// library's attention (PERF.md, PR 2), which is why that shape moved to
+// flash_fwd_sm90.cu.
 // f32 runs a plain-FMA kernel (no TF32) to keep full f32 precision.
 //
 // Built by ray_tpu_torch/_kernels.py with
@@ -509,7 +510,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, out, lse, B, Hq, Hkv, T_len, S_len, causal, stream);
     case 32: return launch<T, 32>(q, k, v, out, lse, B, Hq, Hkv, T_len, S_len, causal, stream);
     case 64: return launch<T, 64>(q, k, v, out, lse, B, Hq, Hkv, T_len, S_len, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, Hq, Hkv, T_len, S_len, causal, stream);
+    case 128:  // bf16 at 128 is flash_fwd_sm90
+      if constexpr (sizeof(T) == 2) return cudaErrorInvalidValue;
+      else return launch<T, 128>(q, k, v, out, lse, B, Hq, Hkv, T_len, S_len, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }

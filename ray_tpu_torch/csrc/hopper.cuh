@@ -1,0 +1,328 @@
+// Hopper (sm_90a) building blocks shared by flash_fwd_sm90.cu and
+// flash_bwd_sm90.cu: mbarriers, TMA loads and reduce-adds, wgmma
+// descriptors and instructions, register hand-off between warpgroups,
+// named barriers and stmatrix. Raw PTX, so a build stays at seconds.
+//
+// Shared-memory layout convention: every tile is stored as column halves
+// of 64 bf16 (128 bytes a row), each half a TMA box loaded with
+// CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte aligned address. One 8-row
+// group of a half is one 1024-byte swizzle atom: the 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8). A wgmma descriptor with the 128-byte
+// swizzle mode reads that layout:
+// - K-major (the reduction dimension runs along the 128-byte row): SBO =
+//   1024 (next 8 rows), LBO unused; the k-step of 16 elements advances
+//   the start address by 32 bytes inside the row.
+// - MN-major (the M or N dimension runs along the row): SBO = 1024 (next
+//   8 rows of the reduction dimension), LBO = the distance between the
+//   column halves (the next 64 of M or N); the k-step of 16 rows
+//   advances the start address by 16 * 128 = 2048 bytes.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace hopper {
+
+constexpr int kHalfCols = 64;    // bf16 columns in one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kAtomBytes = 1024;  // 8 rows of 128 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also raises the barrier's expected transaction bytes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A fresh barrier
+// counts its (virtual) previous phase, of parity 1, as completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// ---------------------------------------------------------------- TMA
+
+// Box {c0, c1, c2} (innermost first) of a 3-D map into shared memory;
+// completion is counted in bytes on `bar`. Rows past the tensor's edge
+// arrive as zeros and count all the same.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Adds a shared-memory box into global memory (f32 add in L2); rows past
+// the tensor's edge are dropped.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src,
+                                                  int c0, int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The bulk groups of this thread have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The bulk groups of this thread are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's generic-proxy shared-memory writes visible to the
+// async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------ warpgroups
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Counts this thread's arrival at barrier `id` without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// 2^x in one MUFU.EX2 (about 2 ulp; results below 2^-126 flush to 0,
+// -inf gives 0). exp2f without fast math adds a predicated range fix-up
+// around every call, which dominated the forward's softmax.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Four 8x8 b16 matrices to shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; register m holds lane l's pair (row l / 4,
+// columns 2 (l % 4), +1) of matrix m, as in an mma fragment.
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(smem_u32(p)), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor, 128-byte swizzle (see the top note).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((kAtomBytes >> 4) & 0x3FFF) << 32;  // SBO
+  d |= 1ull << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// At most N committed wgmma groups of this warpgroup are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Pins registers at this point of the program: the compiler may not move
+// reads or writes of them across it (wgmma reads and writes them
+// asynchronously, which the compiler does not see).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define HP_F8(d, i)                                                                    \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HP_F32(d) HP_F8(d, 0), HP_F8(d, 8), HP_F8(d, 16), HP_F8(d, 24)
+#define HP_F64(d) HP_F32(d), HP_F8(d, 32), HP_F8(d, 40), HP_F8(d, 48), HP_F8(d, 56)
+#define HP_S32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HP_S64                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x N] (f32, registers) = (acc ? d : 0) + A[64 x 16] . B[16 x N], bf16
+// operands. SS: A and B by descriptor; TA/TB = 1 reads that operand
+// MN-major. RS: A from registers (the mma.sync m16n8k16 A fragment of the
+// warp's 16 rows). Accumulator element 4i + e of a thread sits at row
+// 16 (warp % 4) + lane / 4 (+ 8 for e >= 2), column 8i + 2 (lane % 4) + e % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_S32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HP_F32(d)
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HP_S64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HP_F64(d)
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[64], const uint32_t* a, uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HP_S64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : HP_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+#undef HP_F8
+#undef HP_F32
+#undef HP_F64
+#undef HP_S32
+#undef HP_S64
+
+// The A fragment of k-step kk (columns 16kk..16kk+15) from a thread's f32
+// accumulators, rounded to bf16: the accumulator and A layouts agree.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (&c)[N], int kk) {
+  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library needs no link against libcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous [planes, rows, cols] tensor (cols innermost)
+// with boxes of [1, box_rows, box_cols] and the 128-byte swizzle
+// (box_cols * element size must be 128 bytes). Planes keep the heads
+// apart: a box that runs past `rows` reads zeros, not the next head.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, bool f32, uint64_t cols,
+                            uint64_t rows, uint64_t planes, uint32_t box_cols,
+                            uint32_t box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const uint64_t esize = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {cols * esize, cols * rows * esize};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  3, const_cast<void*>(base), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper

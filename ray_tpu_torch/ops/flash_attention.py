@@ -1,8 +1,13 @@
-"""Flash attention: the CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu),
+"""Flash attention: the CUDA kernels (csrc/flash_fwd*.cu, csrc/flash_bwd*.cu),
 their plain torch versions, and the autograd op that joins them.
 
 For a CUDA tensor each wrapper launches its kernel or raises; a CPU
-tensor takes the plain version of the same contract:
+tensor takes the plain version of the same contract. The forward and the
+fused backward have two CUDA variants each, chosen by shape and dtype in
+``kernel_variant``: bf16 at head_dim 128 (every main path) takes the
+Hopper kernels of csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu (TMA,
+wgmma, warp specialisation); f32 and head_dim 16/32/64 take the mma.sync
+and FMA kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu. The contract:
 
   forward: q [B, Hq, T, D], k/v [B, Hkv, S, D] -> out [B, Hq, T, D] in
   q's dtype, lse [B, Hq, T] f32 (natural log). Scale d^-1/2, softmax
@@ -18,7 +23,7 @@ tensor takes the plain version of the same contract:
   over the GQA group, each output rounded once.
 
 The backward has two routes, as in the JAX package: one fused kernel
-(dq, dk, dv in one visit of each tile pair, dq by f32 atomics) and, for
+(dq, dk, dv in one visit of each tile pair, dq added in f32) and, for
 long key sequences, a dq kernel and a dkv kernel (``_use_fused_bwd``).
 
 ``torch.ops.ray_tpu_torch.flash_fwd`` is a registered op (the dispatcher
@@ -45,13 +50,23 @@ _LOG2E = 1.4426950408889634
 _BLOCK_K = 1024
 _MAX_K_TILES = 8
 
-_launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
-             "flash_bwd_dkv": 0}
+# Every C entry point, by the library (csrc/<library>.cu) that holds it.
+_LIBRARY = {"flash_fwd": "flash_fwd", "flash_fwd_sm90": "flash_fwd_sm90",
+            "flash_bwd_fused": "flash_bwd",
+            "flash_bwd_fused_sm90": "flash_bwd_sm90",
+            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}
+# The Hopper variants take bf16 at this head_dim only.
+SM90_HEAD_DIM = 128
+# TMA reads tensors from 16-byte aligned addresses only.
+TMA_ALIGN = 16
+
+_launches = {name: 0 for name in _LIBRARY}
 
 
 def launch_count() -> int:
-    """How many times the forward CUDA kernel has been launched."""
-    return _launches["flash_fwd"]
+    """How many times a forward CUDA kernel (either variant) has been
+    launched."""
+    return _launches["flash_fwd"] + _launches["flash_fwd_sm90"]
 
 
 def launch_counts() -> dict:
@@ -188,6 +203,31 @@ def _on_card(q, what) -> bool:
     raise ValueError(f"{what}: unsupported device {q.device}")
 
 
+def kernel_variant(kernel: str, device_type: str, dtype: torch.dtype,
+                   head_dim: int):
+    """Which implementation of ``kernel`` ("flash_fwd" or
+    "flash_bwd_fused") takes a call: None (the plain version) for a CPU
+    tensor; for a CUDA tensor the entry point ``kernel + "_sm90"`` (TMA,
+    wgmma, warp specialisation) at bf16 with head_dim 128, else ``kernel``
+    (mma.sync for bf16, FMA for f32). Any other device raises."""
+    if device_type == "cpu":
+        return None
+    if device_type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device type {device_type}")
+    if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM:
+        return kernel + "_sm90"
+    return kernel
+
+
+def check_tma_aligned(name, named_tensors) -> None:
+    """Raise unless every (label, tensor) starts on a 16-byte boundary,
+    which the TMA loads of the Hopper kernels need."""
+    for label, x in named_tensors:
+        if x.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: {label} starts at {x.data_ptr():#x}, "
+                             f"not {TMA_ALIGN}-byte aligned (TMA needs it)")
+
+
 def _call(name, args, shapes):
     """Launch csrc entry point ``name`` (tensors as pointers, ints as C
     ints, then the current stream); raise on a refused launch, else
@@ -197,7 +237,7 @@ def _call(name, args, shapes):
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: every tensor argument must be contiguous")
-    lib = _kernels.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
+    lib = _kernels.load(_LIBRARY[name])
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
                    else ctypes.c_int for a in args] + [ctypes.c_void_p]
@@ -212,10 +252,14 @@ def _call(name, args, shapes):
     _launches[name] += 1
 
 
-def _dims(q, k, causal):
+def _dims(q, k, causal, variant):
+    """The C entry point's int arguments: the Hopper variants are bf16 at
+    head_dim 128 by construction and take neither."""
     b, hq, t, d = q.shape
-    return [b, hq, k.shape[1], t, k.shape[2], d,
-            int(q.dtype == torch.bfloat16), int(bool(causal))]
+    sizes = [b, hq, k.shape[1], t, k.shape[2]]
+    if not variant.endswith("_sm90"):
+        sizes += [d, int(q.dtype == torch.bfloat16)]
+    return sizes + [int(bool(causal))]
 
 
 def _shape_note(q, k):
@@ -224,28 +268,36 @@ def _shape_note(q, k):
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """(out, lse) in the kernel layout [B, H, T, D]. CUDA tensors launch
-    the kernel (or raise); CPU tensors take the plain version."""
+    the kernel that ``kernel_variant`` names (or raise); CPU tensors take
+    the plain version."""
     _check(q, k, v, what="flash_attention_fwd")
-    if not _on_card(q, "flash_attention_fwd"):
+    variant = kernel_variant("flash_fwd", q.device.type, q.dtype, q.shape[3])
+    if variant is None:
         return flash_attention_fwd_plain(q, k, v, causal=causal)
+    if variant == "flash_fwd_sm90":
+        check_tma_aligned(variant, (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _call("flash_fwd", [q, k, v, out, lse, *_dims(q, k, causal)],
+    _call(variant, [q, k, v, out, lse, *_dims(q, k, causal, variant)],
           _shape_note(q, k))
     return out, lse
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = True):
-    """(dq, dk, dv) by the fused kernel: dq accumulates by f32 atomics in
-    a zeroed buffer, cast to q's dtype here."""
+    """(dq, dk, dv) by the fused kernel that ``kernel_variant`` names: dq
+    is added in f32 into a zeroed buffer (TMA reduce-adds or vector
+    atomics), cast to q's dtype here."""
     _check_bwd(q, k, v, do, lse, delta, "flash_bwd_fused")
-    if not _on_card(q, "flash_bwd_fused"):
+    variant = kernel_variant("flash_bwd_fused", q.device.type, q.dtype,
+                             q.shape[3])
+    if variant is None:
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, causal=causal)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("flash_bwd_fused",
-          [q, k, v, do, lse, delta, dq_acc, dk, dv, *_dims(q, k, causal)],
-          _shape_note(q, k))
+    if variant == "flash_bwd_fused_sm90":
+        check_tma_aligned(variant, (("q", q), ("k", k), ("v", v), ("do", do)))
+    _call(variant, [q, k, v, do, lse, delta, dq_acc, dk, dv,
+                    *_dims(q, k, causal, variant)], _shape_note(q, k))
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -255,7 +307,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True):
     if not _on_card(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal)
     dq = torch.empty_like(q)
-    _call("flash_bwd_dq", [q, k, v, do, lse, delta, dq, *_dims(q, k, causal)],
+    _call("flash_bwd_dq", [q, k, v, do, lse, delta, dq,
+                           *_dims(q, k, causal, "flash_bwd_dq")],
           _shape_note(q, k))
     return dq
 
@@ -267,7 +320,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("flash_bwd_dkv", [q, k, v, do, lse, delta, dk, dv,
-                            *_dims(q, k, causal)], _shape_note(q, k))
+                            *_dims(q, k, causal, "flash_bwd_dkv")],
+          _shape_note(q, k))
     return dk, dv
 
 

@@ -115,6 +115,24 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert _kernels.library_path("flash_fwd") == _kernels.library_path("flash_fwd")
 
 
+def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
+    from ray_tpu_torch import _kernels
+
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    before = _kernels.library_path("k")
+    assert _kernels.library_path("k") == before
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    edited = _kernels.library_path("k")
+    assert edited != before  # an edited header builds a new library
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _kernels.library_path("k") != edited
+    # the real sources: every .cu keys on hopper.cuh too
+    monkeypatch.undo()
+    assert (_kernels.CSRC / "hopper.cuh").exists()
+
+
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "gqa", "shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q = torch.zeros(1, 4, 8, 16)
