@@ -1,4 +1,4 @@
-"""Times the port's flash-attention forward and fused backward of one
+"""Times the port's flash-attention forward and backward kernels of one
 checkout at the main-path shapes, on one NVIDIA GPU.
 
     python3 chip_ab.py <checkout>
@@ -39,6 +39,10 @@ def main() -> None:
                        ("bwd_1b", (2, 16, 8, 2048, 2048, 128))):
         args = smoke.bwd_inputs(*shape, torch.bfloat16, True, 3)
         row[tag] = smoke.time_ms(lambda: fa.flash_bwd_fused(*args, causal=True), iters=30)
+    # the long-context route's two kernels (T=S=16384, 350m width)
+    args = smoke.bwd_inputs(1, 8, 8, 16384, 16384, 128, torch.bfloat16, True, 5)
+    row["dq_16k"] = smoke.time_ms(lambda: fa.flash_bwd_dq(*args, causal=True), iters=10)
+    row["dkv_16k"] = smoke.time_ms(lambda: fa.flash_bwd_dkv(*args, causal=True), iters=10)
     row["launches"] = fa.launch_counts()
     smoke.emit(row)
 

@@ -11,13 +11,15 @@ T=2048 and Llama-1B at B=2 x T=2048, both at full width and depth
 (bench.py's headline configurations), a 2-layer 350m-width step at
 T=16384 that takes the dq + dkv backward kernels, and an f32 check of
 every gradient against the reference attention. Every bf16 head_dim-128
-forward and fused backward on those paths must go through the Hopper
-kernels (flash_fwd_sm90, flash_bwd_fused_sm90), which the launch counts
-by entry point show. It checks the results and prints one JSON line per
+flash call on those paths must go through the Hopper kernels
+(flash_fwd_sm90, flash_bwd_fused_sm90, and past 8192 keys
+flash_bwd_dq_sm90 + flash_bwd_dkv_sm90), which the launch counts by
+entry point show. It checks the results and prints one JSON line per
 phase. The line before the last lists every main-path kernel with its
 launches on the main paths, error, time (eager, and replayed from a CUDA
 graph), the plain version's time, the library call's time, the card's
-bound, its share of that bound and ptxas's registers; the last line is
+bound, its share of that bound, ptxas's registers and, for dq and dkv,
+the time of the mma.sync kernel each replaced; the last line is
 {"ok": true, "device": {...}}. Any
 failure raises: the exit code is then non-zero and no result line is
 printed. Needs one CUDA device.
@@ -78,9 +80,10 @@ FLASH_CASES = [
 # f32 on both sides (TF32 off); only the order of the sums differs.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # (name, B, Hq, Hkv, T, S, D, causal, dtype, route); the first case of
-# each route is its main path's shape. The fused route at bf16 D=128
-# takes flash_bwd_fused_sm90 (the edges of its 128-key blocks and 64-row
-# q tiles below), the rest flash_bwd_fused.
+# each route is its main path's shape. At bf16 D=128 the fused route
+# takes flash_bwd_fused_sm90 and the split route flash_bwd_dq_sm90 +
+# flash_bwd_dkv_sm90 (the edges of their 64/128-key and 64/128-row tiles
+# below); the rest take flash_bwd_fused or flash_bwd_dq + flash_bwd_dkv.
 BWD_CASES = [
     ("main_350m", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
     ("gqa_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
@@ -104,6 +107,14 @@ BWD_CASES = [
     ("ragged_split_noncausal", 1, 4, 4, 999, 9001, 128, False, torch.bfloat16, "split"),
     ("ragged_split_f32", 1, 2, 1, 77, 8200, 32, True, torch.float32, "split"),
     ("empty_rows_split", 1, 2, 1, 8300, 8200, 32, True, torch.bfloat16, "split"),
+    # the Hopper dq and dkv kernels' edges: ragged T and S, GQA 2 and 4,
+    # rows (and, at T - S >= 128, whole 128-row dq blocks) that see no
+    # key, a single query row
+    ("ragged_split_gqa_d128", 1, 4, 2, 333, 8777, 128, True, torch.bfloat16, "split"),
+    ("empty_rows_split_d128", 1, 2, 1, 8300, 8200, 128, True, torch.bfloat16, "split"),
+    ("empty_blocks_split_d128", 1, 2, 1, 8500, 8200, 128, True, torch.bfloat16, "split"),
+    ("t1_split_s8300", 1, 8, 4, 1, 8300, 128, True, torch.bfloat16, "split"),
+    ("noncausal_split_gqa4", 1, 8, 2, 999, 9001, 128, False, torch.bfloat16, "split"),
 ]
 BWD_KERNELS = {
     "flash_bwd_fused": (fa.flash_bwd_fused, fa.flash_bwd_fused_plain, ("dq", "dk", "dv")),
@@ -113,17 +124,23 @@ BWD_KERNELS = {
 # tensor-core products per kept (q, k) pair and head, 2*D flops each
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
             "flash_bwd_dkv": 4}
-LIBS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_sm90")
-# the entry point a main path takes at bf16 D=128 -> (its kernel function
-# in ptxas's report, the C function that returns its shared memory)
+LIBS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_sm90",
+        "flash_bwd_dq_sm90")
+# entry point -> (its kernel function in ptxas's report, the C function
+# that returns its shared memory): the ones a main path takes at bf16
+# D=128, and the mma.sync dq and dkv kernels the Hopper ones replaced
 KERNEL_SYMBOLS = {
     "flash_fwd_sm90": ("flash_fwd_sm90_kernel", "flash_fwd_sm90_smem_bytes"),
-    "flash_bwd_fused_sm90": ("flash_bwd_fused_sm90_kernel",
+    "flash_bwd_fused_sm90": ("flash_bwd_sm90_kernelILb1E",
                              "flash_bwd_fused_sm90_smem_bytes"),
+    "flash_bwd_dq_sm90": ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_sm90_smem_bytes"),
+    "flash_bwd_dkv_sm90": ("flash_bwd_sm90_kernelILb0E", "flash_bwd_dkv_sm90_smem_bytes"),
     "flash_bwd_dq": ("flash_bwd_dq_bf16ILi128EE", None),
     "flash_bwd_dkv": ("flash_bwd_kv_bf16ILi128ELb0EE", None),
 }
-NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
+# the Hopper kernels: ptxas must report no spills for them
+NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dq_sm90",
+               "flash_bwd_dkv_sm90")
 
 
 def emit(obj) -> None:
@@ -474,9 +491,7 @@ def bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, seed):
 
 def entry_point(kernel, dtype, d):
     """The C entry point that wrapper `kernel` launches on the card."""
-    if kernel in ("flash_fwd", "flash_bwd_fused"):
-        return fa.kernel_variant(kernel, "cuda", dtype, d)
-    return kernel
+    return fa.kernel_variant(kernel, "cuda", dtype, d)
 
 
 def bwd_errors(kernel, args, causal):
@@ -492,6 +507,13 @@ def bwd_errors(kernel, args, causal):
     want = plain(*args, causal=causal)
     if len(names) == 1:
         got, want = (got,), (want,)
+    return output_errors(kernel, names, got, want), got
+
+
+def output_errors(kernel, names, got, want):
+    """{output: (max abs error, error / max |plain|)} of a kernel's outputs
+    `got` against its plain version's `want`; raises on a non-finite
+    output."""
     errs = {}
     for name, a, w in zip(names, got, want):
         a, w = a.float(), w.float()
@@ -499,7 +521,7 @@ def bwd_errors(kernel, args, causal):
             raise AssertionError(f"{kernel}: non-finite {name}")
         err = (a - w).abs().max().item()
         errs[name] = (err, err / max(w.abs().max().item(), 1e-30))
-    return errs, got
+    return errs
 
 
 def phase_bwd_kernel_vs_plain():
@@ -531,6 +553,32 @@ def phase_bwd_kernel_vs_plain():
         del args
     torch.cuda.empty_cache()
     return results
+
+
+def phase_bwd_determinism():
+    """Two launches of each split-route kernel on the long-context inputs
+    give the same bits (no atomics in either)."""
+    name, b, hq, hkv, t, s, d, causal, dtype, _ = next(
+        c for c in BWD_CASES if c[0] == "long_ctx_350m")
+    args = bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, SEED + 600)
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        fn = BWD_KERNELS[kernel][0]
+        entry = entry_point(kernel, dtype, d)
+        fa.reset_launch_count()
+        first, second = fn(*args, causal=causal), fn(*args, causal=causal)
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        if kernel == "flash_bwd_dq":
+            first, second = (first,), (second,)
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        emit({"phase": "bwd_determinism", "case": name, "entry_point": entry,
+              "launches": counts[entry], "bitwise_equal": same})
+        if counts[entry] != 2 or not same:
+            raise AssertionError(f"{entry}: two launches on {name} differ "
+                                 f"(launches {counts})")
+        del first, second
+    del args
+    torch.cuda.empty_cache()
 
 
 # (B, Hq, Hkv, T, S, D), bf16, causal: both backward routes timed on each
@@ -817,11 +865,26 @@ def sdpa_bwd_ms(q, k, v, do):
     return both - only_fwd, both, only_fwd
 
 
-def time_kernel(entry, shape, peaks, seed, plain_iters=5):
+def run_entry(entry, args, causal=True):
+    """Launch the dq or dkv C entry point `entry` on `args` (q, k, v, do,
+    lse, delta) directly: the wrappers route bf16 at D=128 to the Hopper
+    kernels, so this is how the mma.sync kernels they replaced are timed
+    at the same shapes. Returns the outputs."""
+    q, k = args[0], args[1]
+    outs = ([torch.empty_like(q)] if entry.startswith("flash_bwd_dq")
+            else [torch.empty_like(k), torch.empty_like(k)])
+    fa._call(entry, [*args, *outs, *fa._dims(q, k, causal, entry)],
+             fa._shape_note(q, k))
+    return outs
+
+
+def time_kernel(entry, shape, peaks, seed, plain_iters=5, replaced=None):
     """C entry point `entry` at `shape` (B, Hq, Hkv, T, S, D; bf16, causal),
     through its wrapper, in turns plain, kernel, kernel, plain, library;
     with its error against the plain version there, held to TOL / BWD_TOL,
-    and its bound."""
+    and its bound. `replaced`: the entry point of the kernel that `entry`
+    replaced, held to the same tolerance and timed in turns with it
+    (kernel, replaced, replaced, kernel)."""
     b, hq, hkv, t, s, d = shape
     dtype = torch.bfloat16
     kernel = entry.removesuffix("_sm90")  # the wrapper's name
@@ -859,7 +922,24 @@ def time_kernel(entry, shape, peaks, seed, plain_iters=5):
         run_plain = lambda: plain(*args, causal=True)  # noqa: E731
         lib = None
     plain_a = time_ms(run_plain, iters=plain_iters, warmup=1)
-    kern_a, kern_b = time_ms(run), time_ms(run)
+    old = None
+    if replaced is None:
+        kern_a, kern_b = time_ms(run), time_ms(run)
+    else:
+        want = run_plain()
+        old_errs = output_errors(replaced, BWD_KERNELS[kernel][2], run_entry(replaced, args),
+                                 want if isinstance(want, tuple) else (want,))
+        if any(rel > BWD_TOL[dtype] for _, rel in old_errs.values()):
+            raise AssertionError(f"{replaced} disagrees with its plain version at "
+                                 f"{shape}: {old_errs} (tol {BWD_TOL[dtype]})")
+        del want
+        run_old = lambda: run_entry(replaced, args)  # noqa: E731
+        kern_a = time_ms(run)
+        old_a, old_b = time_ms(run_old), time_ms(run_old)
+        kern_b = time_ms(run)
+        old = {"name": replaced, "ms": min(old_a, old_b), "ms_runs": [old_a, old_b],
+               "graph_ms": graph_ms(run_old),
+               "max_abs_err": max(e for e, _ in old_errs.values())}
     kern_graph = graph_ms(run)
     plain_b = time_ms(run_plain, iters=plain_iters, warmup=1)
     if lib is None:
@@ -876,6 +956,9 @@ def time_kernel(entry, shape, peaks, seed, plain_iters=5):
            **lib, "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": bound_by, "achieved_tflops": flops / (ms / 1e3) / 1e12,
            "share_of_bound": bound_ms / ms, "max_abs_err": err}
+    if old is not None:
+        row["replaced"] = {**old, "share_of_bound": bound_ms / old["ms"]}
+        row["speedup_over_replaced"] = old["ms"] / ms
     emit({"phase": "kernel_timing", **row})
     torch.cuda.empty_cache()
     return row
@@ -887,28 +970,35 @@ SOURCES = {
                        "ray_tpu/ops/flash_attention.py:294"),
     "flash_bwd_fused_sm90": ("ray_tpu_torch/csrc/flash_bwd_sm90.cu",
                              "ray_tpu/ops/flash_attention.py:575"),
-    "flash_bwd_dq": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:678"),
-    "flash_bwd_dkv": ("ray_tpu_torch/csrc/flash_bwd.cu", "ray_tpu/ops/flash_attention.py:707"),
+    "flash_bwd_dq_sm90": ("ray_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                          "ray_tpu/ops/flash_attention.py:678"),
+    "flash_bwd_dkv_sm90": ("ray_tpu_torch/csrc/flash_bwd_sm90.cu",
+                           "ray_tpu/ops/flash_attention.py:707"),
 }
+# the Hopper entry point -> the mma.sync kernel (csrc/flash_bwd.cu) it
+# replaced on the main path, timed beside it in the kernels line
+REPLACED = {"flash_bwd_dq_sm90": "flash_bwd_dq", "flash_bwd_dkv_sm90": "flash_bwd_dkv"}
 # main-path shapes (B, Hq, Hkv, T, S, D): the forward's 1B scoring shape
 # (and its 350m training shape), the fused backward's 350m training
 # shape, and the dq/dkv kernels' at 350m width with T = S = 16384
 MAIN_SHAPES = {
     "flash_fwd_sm90": (2, 16, 8, 2048, 2048, 128),
     "flash_bwd_fused_sm90": (8, 8, 8, 2048, 2048, 128),
-    "flash_bwd_dq": (1, 8, 8, 16384, 16384, 128),
-    "flash_bwd_dkv": (1, 8, 8, 16384, 16384, 128),
+    "flash_bwd_dq_sm90": (1, 8, 8, 16384, 16384, 128),
+    "flash_bwd_dkv_sm90": (1, 8, 8, 16384, 16384, 128),
 }
 
 
 def phase_kernels_line(launches, peaks, build_info):
     """One entry per main-path kernel: its launches on the main paths, its
     time, error, bound, plain and library times, share of bound, and
-    ptxas's registers (and the shared memory of the Hopper kernels)."""
+    ptxas's registers (and the shared memory of the Hopper kernels); for
+    dq and dkv, the mma.sync kernel each replaced, timed in turns with it."""
     kernels = []
     for i, (kernel, shape) in enumerate(MAIN_SHAPES.items()):
         row = time_kernel(kernel, shape, peaks, SEED + 400 + i,
-                          plain_iters=2 if shape[3] > 4096 else 5)
+                          plain_iters=2 if shape[3] > 4096 else 5,
+                          replaced=REPLACED.get(kernel))
         src, replaces = SOURCES[kernel]
         entry = {"name": kernel, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches.get(kernel, 0),
@@ -919,6 +1009,10 @@ def phase_kernels_line(launches, peaks, build_info):
                  "graph_ms": row["kernel_graph_ms"], **build_info[kernel]}
         if "library_graph_ms" in row:
             entry["library_graph_ms"] = row["library_graph_ms"]
+        if "replaced" in row:
+            entry["replaced"] = {**row["replaced"], "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                                 **build_info[row["replaced"]["name"]]}
+            entry["speedup_over_replaced"] = row["speedup_over_replaced"]
         if kernel == "flash_fwd_sm90":
             train_row = time_kernel(kernel, MAIN_SHAPES["flash_bwd_fused_sm90"],
                                     peaks, SEED + 410)
@@ -944,6 +1038,7 @@ def main() -> None:
     build_info = phase_build()
     phase_kernel_vs_plain()
     phase_bwd_kernel_vs_plain()
+    phase_bwd_determinism()
     phase_bwd_routes()
     cfg = bench_1b_config()
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -966,16 +1061,16 @@ def main() -> None:
     by_path["train_1b"] = phase_train(
         "train_1b", train_config("1b", "flash_qkv"), 2, 2048,
         expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b), peaks)
+    long_cfg = train_config("350m", "dots_flash_qkv_mlp", n_layers=2,
+                            max_seq_len=16384)
     by_path["train_long_context"] = phase_train(
-        "train_long_context",
-        train_config("350m", "dots_flash_qkv_mlp", n_layers=2,
-                     max_seq_len=16384), 1, 16384,
-        expected(flash_fwd_sm90=2, flash_bwd_dq=2, flash_bwd_dkv=2), peaks,
-        warm=1, timed=2)
+        "train_long_context", long_cfg, 1, 16384,
+        expected(flash_fwd_sm90=2, flash_bwd_dq_sm90=2, flash_bwd_dkv_sm90=2), peaks)
     phase_grad_exactness_f32()
     phase_sr_card_vs_cpu()
     phase_profile("profile_train_350m", train_config("350m", "dots_flash_qkv_mlp"),
                   8, 2048)
+    phase_profile("profile_train_long_context", long_cfg, 1, 16384, steps=5)
     launches = {}
     for counts in by_path.values():
         add_counts(launches, counts)

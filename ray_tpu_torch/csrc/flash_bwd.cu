@@ -12,6 +12,12 @@
 //   flash_bwd_dq     replaces `_flash_bwd`'s dq kernel (:678, body
 //                    `_dq_kernel` :315-365): dq, with the k loop innermost.
 //
+// bf16 at head_dim 128 (every main path) takes the Hopper kernels of
+// flash_bwd_sm90.cu (fused, dkv) and flash_bwd_dq_sm90.cu instead; these
+// take head_dim 16/32/64 and f32. flash_bwd_dq and flash_bwd_dkv still
+// build bf16 at 128, which no wrapper launches: chip_smoke.py times them
+// there beside the Hopper kernels that replaced them.
+//
 // Contract (as the TPU kernels): q/do [B,Hq,T,D], k/v [B,Hkv,S,D], all
 // contiguous, one dtype; lse [B,Hq,T] f32, natural log, from the forward;
 // delta = rowsum(do*o) [B,Hq,T] f32, computed by the caller. Query head h
@@ -51,16 +57,13 @@
 //   vector atomic. The atomic traffic is D floats per query row per key
 //   block; 128-key blocks and vector atomics keep it 8x below one scalar
 //   atomic per 64 keys. The caller takes the two-kernel path past 8192
-//   keys by the reference's rule, not for speed: fused stays 1-4% ahead
-//   of dq + dkv up to 16384 keys on the H100. The atomics' order changes from run to
-//   run, so dq is not bitwise reproducible.
+//   keys by the reference's rule, not for speed. The atomics' order
+//   changes from run to run, so dq is not bitwise reproducible.
 // - flash_bwd_dq: a block owns 64 query rows of one (batch, head), four
 //   warps of 16 rows, keeps its q and do fragments in registers and walks
 //   the live key tiles of 32 (double-buffered by cp.async, as the
 //   forward); dq accumulates in f32 registers and is written once, with
 //   no atomics, so it is deterministic.
-// The fused kernel's wgmma/TMA redesign for bf16 at head_dim 128 is
-// flash_bwd_sm90.cu; dq and dkv keep this design (ROADMAP Queue 2).
 // f32 runs plain-FMA kernels (no TF32) to keep full f32 precision.
 //
 // Built by ray_tpu_torch/_kernels.py with
@@ -865,7 +868,7 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t s) {
     case 16: return launch<T, 16, M>(a, s);
     case 32: return launch<T, 32, M>(a, s);
     case 64: return launch<T, 64, M>(a, s);
-    case 128:  // the fused bf16 kernel at 128 is flash_bwd_sm90's
+    case 128:  // the fused bf16 kernel at 128 is flash_bwd_sm90's (dq and dkv: see the top note)
       if constexpr (sizeof(T) == 2 && M == Mode::kFused) return cudaErrorInvalidValue;
       else return launch<T, 128, M>(a, s);
     default: return cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by flash_fwd_sm90.cu and
-// flash_bwd_sm90.cu: mbarriers, TMA loads and reduce-adds, wgmma
-// descriptors and instructions, register hand-off between warpgroups,
-// named barriers and stmatrix. Raw PTX, so a build stays at seconds.
+// Hopper (sm_90a) building blocks shared by flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu and flash_bwd_dq_sm90.cu: mbarriers, TMA loads and
+// reduce-adds, wgmma descriptors and instructions, register hand-off
+// between warpgroups, named barriers, stmatrix and ldmatrix. Raw PTX, so a
+// build stays at seconds.
 //
 // Shared-memory layout convention: every tile is stored as column halves
 // of 64 bf16 (128 bytes a row), each half a TMA box loaded with
@@ -156,6 +157,13 @@ __device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1, u
                :: "r"(smem_u32(p)), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
 }
 
+// Four 8x8 b16 matrices from shared memory, the converse of stmatrix_x4:
+// lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -248,6 +256,17 @@ __device__ __forceinline__ void wgmma_n128_rs(float (&d)[64], const uint32_t* a,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HP_S64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : HP_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t* a, uint64_t db,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_S32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : HP_F32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 

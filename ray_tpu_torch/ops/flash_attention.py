@@ -2,12 +2,14 @@
 their plain torch versions, and the autograd op that joins them.
 
 For a CUDA tensor each wrapper launches its kernel or raises; a CPU
-tensor takes the plain version of the same contract. The forward and the
-fused backward have two CUDA variants each, chosen by shape and dtype in
-``kernel_variant``: bf16 at head_dim 128 (every main path) takes the
-Hopper kernels of csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu (TMA,
-wgmma, warp specialisation); f32 and head_dim 16/32/64 take the mma.sync
-and FMA kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu. The contract:
+tensor takes the plain version of the same contract. Each of the four
+kernels (forward, fused backward, dq, dkv) has two CUDA variants, chosen
+by shape and dtype in ``kernel_variant``: bf16 at head_dim 128 (every
+main path) takes the Hopper kernels of csrc/flash_fwd_sm90.cu,
+csrc/flash_bwd_sm90.cu (fused and dkv) and csrc/flash_bwd_dq_sm90.cu
+(TMA, wgmma, warp specialisation); f32 and head_dim 16/32/64 take the
+mma.sync and FMA kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu. The
+contract:
 
   forward: q [B, Hq, T, D], k/v [B, Hkv, S, D] -> out [B, Hq, T, D] in
   q's dtype, lse [B, Hq, T] f32 (natural log). Scale d^-1/2, softmax
@@ -54,7 +56,8 @@ _MAX_K_TILES = 8
 _LIBRARY = {"flash_fwd": "flash_fwd", "flash_fwd_sm90": "flash_fwd_sm90",
             "flash_bwd_fused": "flash_bwd",
             "flash_bwd_fused_sm90": "flash_bwd_sm90",
-            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}
+            "flash_bwd_dq": "flash_bwd", "flash_bwd_dq_sm90": "flash_bwd_dq_sm90",
+            "flash_bwd_dkv": "flash_bwd", "flash_bwd_dkv_sm90": "flash_bwd_sm90"}
 # The Hopper variants take bf16 at this head_dim only.
 SM90_HEAD_DIM = 128
 # TMA reads tensors from 16-byte aligned addresses only.
@@ -195,19 +198,11 @@ def _check_bwd(q, k, v, do, lse, delta, what):
                              f"{tuple(x.shape)} on {x.device}")
 
 
-def _on_card(q, what) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if q.device.type in ("cuda", "cpu"):
-        return q.device.type == "cuda"
-    raise ValueError(f"{what}: unsupported device {q.device}")
-
-
 def kernel_variant(kernel: str, device_type: str, dtype: torch.dtype,
                    head_dim: int):
-    """Which implementation of ``kernel`` ("flash_fwd" or
-    "flash_bwd_fused") takes a call: None (the plain version) for a CPU
-    tensor; for a CUDA tensor the entry point ``kernel + "_sm90"`` (TMA,
+    """Which implementation of ``kernel`` ("flash_fwd", "flash_bwd_fused",
+    "flash_bwd_dq" or "flash_bwd_dkv") takes a call: None (the plain
+    version) for a CPU tensor; for a CUDA tensor the entry point ``kernel + "_sm90"`` (TMA,
     wgmma, warp specialisation) at bf16 with head_dim 128, else ``kernel``
     (mma.sync for bf16, FMA for f32). Any other device raises."""
     if device_type == "cpu":
@@ -283,45 +278,52 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     return out, lse
 
 
+def _bwd_variant(kernel, q, k, v, do, lse, delta):
+    """Check a backward call's arguments; return the entry point that
+    ``kernel_variant`` names for it (None: the plain version), after the
+    alignment check a Hopper kernel's TMA loads need."""
+    _check_bwd(q, k, v, do, lse, delta, kernel)
+    variant = kernel_variant(kernel, q.device.type, q.dtype, q.shape[3])
+    if variant is not None and variant.endswith("_sm90"):
+        check_tma_aligned(variant, (("q", q), ("k", k), ("v", v), ("do", do)))
+    return variant
+
+
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = True):
     """(dq, dk, dv) by the fused kernel that ``kernel_variant`` names: dq
     is added in f32 into a zeroed buffer (TMA reduce-adds or vector
     atomics), cast to q's dtype here."""
-    _check_bwd(q, k, v, do, lse, delta, "flash_bwd_fused")
-    variant = kernel_variant("flash_bwd_fused", q.device.type, q.dtype,
-                             q.shape[3])
+    variant = _bwd_variant("flash_bwd_fused", q, k, v, do, lse, delta)
     if variant is None:
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, causal=causal)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if variant == "flash_bwd_fused_sm90":
-        check_tma_aligned(variant, (("q", q), ("k", k), ("v", v), ("do", do)))
     _call(variant, [q, k, v, do, lse, delta, dq_acc, dk, dv,
                     *_dims(q, k, causal, variant)], _shape_note(q, k))
     return dq_acc.to(q.dtype), dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True):
-    """dq by the dq kernel (k loop innermost, no atomics)."""
-    _check_bwd(q, k, v, do, lse, delta, "flash_bwd_dq")
-    if not _on_card(q, "flash_bwd_dq"):
+    """dq by the dq kernel that ``kernel_variant`` names (k loop
+    innermost, no atomics: bitwise the same from run to run)."""
+    variant = _bwd_variant("flash_bwd_dq", q, k, v, do, lse, delta)
+    if variant is None:
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal)
     dq = torch.empty_like(q)
-    _call("flash_bwd_dq", [q, k, v, do, lse, delta, dq,
-                           *_dims(q, k, causal, "flash_bwd_dq")],
-          _shape_note(q, k))
+    _call(variant, [q, k, v, do, lse, delta, dq,
+                    *_dims(q, k, causal, variant)], _shape_note(q, k))
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
-    """(dk, dv) by the dkv kernel (q loop innermost)."""
-    _check_bwd(q, k, v, do, lse, delta, "flash_bwd_dkv")
-    if not _on_card(q, "flash_bwd_dkv"):
+    """(dk, dv) by the dkv kernel that ``kernel_variant`` names (q loop
+    innermost)."""
+    variant = _bwd_variant("flash_bwd_dkv", q, k, v, do, lse, delta)
+    if variant is None:
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("flash_bwd_dkv", [q, k, v, do, lse, delta, dk, dv,
-                            *_dims(q, k, causal, "flash_bwd_dkv")],
-          _shape_note(q, k))
+    _call(variant, [q, k, v, do, lse, delta, dk, dv,
+                    *_dims(q, k, causal, variant)], _shape_note(q, k))
     return dk, dv
 
 
@@ -330,12 +332,13 @@ def _use_fused_bwd(t: int, s: int) -> bool:
 
     The reference's rule at its default 1024-key blocks, kept for parity
     with the JAX package: fused while the keys span at most 8 tiles (S <=
-    8192). On the H100 it is not a speed rule: the fused kernel timed
-    1-4% faster than dq + dkv at every S from 2048 to 16384 (chip_smoke.py
-    phase ``bwd_routes``). What the two-kernel route does give past 8192
-    keys is a dq that is the same from run to run (no atomics). The
-    reference's T-divisibility condition has no counterpart: the kernels
-    mask ragged edges. ``t`` is taken to keep the reference's signature."""
+    8192). On the H100 it is not a speed rule: with both routes on the
+    Hopper kernels, the fused kernel times ahead of dq + dkv at every S
+    from 2048 to 16384 (chip_smoke.py phase ``bwd_routes``; PERF.md).
+    What the two-kernel route does give past 8192 keys is a dq that is
+    the same from run to run (no atomics). The reference's T-divisibility
+    condition has no counterpart: the kernels mask ragged edges. ``t`` is
+    taken to keep the reference's signature."""
     del t
     return cdiv(s, _BLOCK_K) <= _MAX_K_TILES
 

@@ -73,6 +73,9 @@ CASES = [
     (2, 64, 64, 4, 2, 16, True, 64, 64, "bfloat16"),
     # past the JAX gate: 9 key tiles of 512 -> the dq + dkv kernels
     (1, 128, 4608, 2, 1, 16, True, 128, 512, "float32"),
+    # bf16 at head_dim 128, GQA, past both gates (17 key tiles of 512 in
+    # JAX, S > 8192 in the port): the Hopper dq and dkv kernels' shape
+    (1, 64, 8704, 4, 2, 128, True, 64, 512, "bfloat16"),
 ]
 
 
