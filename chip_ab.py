@@ -1,7 +1,9 @@
 """Times the port's flash-attention forward and backward kernels of one
-checkout at the main-path shapes, on one NVIDIA GPU.
+checkout at the main-path shapes, on one NVIDIA GPU; or, with `engine`,
+its greedy serving engine at Llama-1B.
 
     python3 chip_ab.py <checkout>
+    python3 chip_ab.py <checkout> engine
 
 To compare two versions on one card, unpack both (``git archive``) into
 directories that ``.gitignore`` lists and time them in turns in one
@@ -10,11 +12,124 @@ machine session: parent, change, change, parent. The checkout's own
 built from its own sources into its own ``build/``. Prints one JSON line:
 mean ms per call (CUDA events around eager calls through the wrappers)
 and the launches by entry point, which show the kernels timed.
+
+`engine` runs the checkout's `phase_serving` (32 requests of 128 prompt
+and 128 new tokens on 8 slots, chunks of 32: every admission a full wave
+of 8), then greedy traffic that admits partial waves: 32 requests of 128
+prompt tokens with `max_new` staggered over 16, 32, ..., 128, so slots
+free a few at a time. That traffic runs twice (the first pass meets each
+prefill width for the first time); each pass prints its tokens/s, the
+mean time of the pumps that admitted streams and of those that only
+decoded (each pump ends in the engine's one device->host transfer), and
+how many pumps admitted how many streams. Last, the admission itself:
+`_prefill_batch_into_slots` of 1, 2, 4 or 8 streams at a width of as
+many rows and at the slot width of 8 (rows past the streams go to an
+out-of-range slot and are dropped), ms per call by CUDA events, and
+the device launches (kernels and copies, by torch.profiler) of one such
+call and of one greedy decode step of the 8-slot batch.
 """
 
 import json
 import os
 import sys
+import time
+
+PARTIAL_REQUESTS, PARTIAL_PASSES = 32, 2
+
+
+def partial_waves(smoke, decode_engine, cfg, params):
+    import numpy as np
+    import torch
+
+    eng = decode_engine.RaggedDecoder(
+        params, cfg, slots=8, max_len=288, chunk_tokens=32,
+        prompt_buckets=(128,), device="cuda")
+    rng = np.random.RandomState(smoke.SEED + 11)
+    for rnd in range(PARTIAL_PASSES):
+        prompts = [rng.randint(1, 30000, 128).astype(np.int32)
+                   for _ in range(PARTIAL_REQUESTS)]
+        news = [16 * (1 + i % 8) for i in range(PARTIAL_REQUESTS)]
+        sids = [eng.submit(p, n) for p, n in zip(prompts, news)]
+        pumps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.queue or any(st is not None for st in eng.slot_stream):
+            queued, tp = len(eng.queue), time.perf_counter()
+            eng.pump()
+            pumps.append((time.perf_counter() - tp, queued - len(eng.queue)))
+        dt = time.perf_counter() - t0
+        lens = [len(eng.pop_finished(sid).tokens) for sid in sids]
+        if lens != news:
+            raise AssertionError(f"partial waves: streams ended with {lens}")
+        admitting = [t for t, n in pumps if n > 0]
+        waves: dict = {}
+        for _, n in pumps:
+            if n > 0:
+                waves[n] = waves.get(n, 0) + 1
+        smoke.emit({"phase": "serving_1b_partial_waves", "pass": rnd,
+                    "requests": PARTIAL_REQUESTS, "seconds": dt,
+                    "engine_tokens_per_sec": sum(lens) / dt,
+                    "pumps": len(pumps),
+                    "admitting_pump_s": float(np.mean(admitting)),
+                    "decode_only_pump_s": float(np.mean(
+                        [t for t, n in pumps if n == 0])),
+                    "admitting_pumps_by_streams_admitted": waves})
+
+
+def launches(fn) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def admission_widths(smoke, decode_engine, cfg, params):
+    import numpy as np
+    import torch
+
+    cache = decode_engine.init_ragged_cache(cfg, 8, 288, device="cuda")
+    cur_tok = torch.zeros((8,), dtype=torch.int32, device="cuda")
+    rng = np.random.RandomState(smoke.SEED + 13)
+    prompts = torch.from_numpy(rng.randint(1, 30000, (8, 128)).astype(
+        np.int32)).cuda()
+    row, count = {}, {}
+    for n in (1, 2, 4, 8):
+        row[n], count[n] = {}, {}
+        for width in sorted({n, 8}):
+            slots = np.where(np.arange(width) < n, np.arange(width), 8 + 1024)
+
+            def admit():
+                decode_engine._prefill_batch_into_slots(
+                    params, prompts[:width], np.full((width,), 128, np.int32),
+                    slots, cache, cur_tok, cfg)
+            row[n][width] = smoke.time_ms(admit, iters=10, warmup=2)
+            count[n][width] = launches(admit)
+    active = torch.ones((8,), dtype=torch.bool, device="cuda")
+    smoke.emit({"phase": "admission_prefill_ms", "by_streams_then_width": row,
+                "launches_by_streams_then_width": count,
+                "greedy_decode_step_launches": launches(
+                    lambda: decode_engine.decode_chunk(
+                        params, cache, cur_tok, active, cfg, 1))})
+
+
+def engine(smoke) -> None:
+    import torch
+
+    from ray_tpu_torch.models import decode_engine, llama
+
+    cfg = smoke.bench_1b_config()
+    g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    params = llama.init_params(cfg, g, device="cuda")
+    with torch.inference_mode():
+        smoke.phase_serving(cfg, params)
+        partial_waves(smoke, decode_engine, cfg, params)
+        admission_widths(smoke, decode_engine, cfg, params)
 
 
 def main() -> None:
@@ -29,6 +144,9 @@ def main() -> None:
     smoke.phase_device()
     libs = [p[:-3] for p in os.listdir("ray_tpu_torch/csrc") if p.endswith(".cu")]
     smoke._kernels.build(sorted(libs))
+    if sys.argv[2:] == ["engine"]:
+        engine(smoke)
+        return
     row = {"checkout": sys.argv[1]}
     for tag, shape in (("fwd_1b", (2, 16, 8, 2048, 2048, 128)),
                        ("fwd_350m", (8, 8, 8, 2048, 2048, 128))):

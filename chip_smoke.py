@@ -4,25 +4,29 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain torch version on the card, drives the inference
-path at the full width of Llama-1B (a scoring forward through the flash
-kernel, then the continuous-batching engine serving 32 requests, whose
-outputs are scored again), then the training path: Llama-350m at B=8 x
-T=2048 and Llama-1B at B=2 x T=2048, both at full width and depth
-(bench.py's headline configurations), a 2-layer 350m-width step at
-T=16384 that takes the dq + dkv backward kernels, and an f32 check of
-every gradient against the reference attention. Every bf16 head_dim-128
-flash call on those paths must go through the Hopper kernels
-(flash_fwd_sm90, flash_bwd_fused_sm90, and past 8192 keys
-flash_bwd_dq_sm90 + flash_bwd_dkv_sm90), which the launch counts by
-entry point show. It checks the results and prints one JSON line per
-phase. The line before the last lists every main-path kernel with its
-launches on the main paths, error, time (eager, and replayed from a CUDA
-graph), the plain version's time, the library call's time, the card's
-bound, its share of that bound, ptxas's registers and, for dq and dkv,
-the time of the mma.sync kernel each replaced; the last line is
-{"ok": true, "device": {...}}. Any
-failure raises: the exit code is then non-zero and no result line is
-printed. Needs one CUDA device.
+path at the full width and depth of Llama-1B (a scoring forward through
+the flash kernel, then the continuous-batching engine serving 32
+requests, whose outputs are scored again), then every other kind of
+request the engine serves: sampled lanes (whose threefry bits must equal
+the CPU's, whose replays must equal bit for bit, and whose behaviour
+logprobs are set beside a teacher-forced forward), speculative decoding,
+the prefix cache and disaggregated prefill, with an f32 2-layer copy
+holding each of those paths to the one it must reproduce. Then the
+training path: Llama-350m at B=8 x T=2048 and Llama-1B at B=2 x T=2048,
+both at full width and depth (bench.py's headline configurations), a
+2-layer 350m-width step at T=16384 that takes the dq + dkv backward
+kernels, and an f32 check of every gradient against the reference
+attention. Every bf16 head_dim-128 flash call on those paths must go
+through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
+past 8192 keys flash_bwd_dq_sm90 + flash_bwd_dkv_sm90), which the launch
+counts by entry point show. It checks the results and prints one JSON
+line per phase. The line before the last lists every main-path kernel
+with its launches on the main paths, error, time (eager, and replayed
+from a CUDA graph), the plain version's time, the library call's time,
+the card's bound, its share of that bound and ptxas's registers; the
+last line is {"ok": true, "device": {...}}. Any failure raises: the exit
+code is then non-zero and no result line is printed. Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import _kernels, train
-from ray_tpu_torch.models import decode_engine, llama
+from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.utils import prng
 from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
 SEED = 0
@@ -127,23 +132,25 @@ PRODUCTS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
 LIBS = ("flash_fwd", "flash_bwd", "flash_fwd_sm90", "flash_bwd_sm90",
         "flash_bwd_dq_sm90")
 # entry point -> (its kernel function in ptxas's report, the C function
-# that returns its shared memory): the ones a main path takes at bf16
-# D=128, and the mma.sync dq and dkv kernels the Hopper ones replaced
+# that returns its shared memory): the ones a main path takes at bf16 D=128
 KERNEL_SYMBOLS = {
     "flash_fwd_sm90": ("flash_fwd_sm90_kernel", "flash_fwd_sm90_smem_bytes"),
     "flash_bwd_fused_sm90": ("flash_bwd_sm90_kernelILb1E",
                              "flash_bwd_fused_sm90_smem_bytes"),
     "flash_bwd_dq_sm90": ("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_sm90_smem_bytes"),
     "flash_bwd_dkv_sm90": ("flash_bwd_sm90_kernelILb0E", "flash_bwd_dkv_sm90_smem_bytes"),
-    "flash_bwd_dq": ("flash_bwd_dq_bf16ILi128EE", None),
-    "flash_bwd_dkv": ("flash_bwd_kv_bf16ILi128ELb0EE", None),
 }
 # the Hopper kernels: ptxas must report no spills for them
 NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dq_sm90",
                "flash_bwd_dkv_sm90")
 
 
+RECORDS = {}  # the last line emitted by each phase
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        RECORDS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -445,7 +452,7 @@ def phase_serving(cfg, params):
           "scoring_flash_launches": score_launches,
           "served_equals_teacher_forced_argmax": match,
           "stats": eng.stats()})
-    return fa.launch_counts()
+    return fa.launch_counts(), [s.tokens for s in streams]
 
 
 def phase_exactness_f32():
@@ -464,18 +471,495 @@ def phase_exactness_f32():
     new_tokens = 32
     sids = [eng.submit(p, new_tokens) for p in prompts]
     eng.drain()
-    mismatched = []
+    mismatched, greedy = [], []
     for sid, p in zip(sids, prompts):
         s = eng.pop_finished(sid)
         ref = llama.greedy_generate(params, torch.from_numpy(p[None]).cuda(),
                                     cfg, new_tokens)[0, len(p):].tolist()
         if s.tokens != ref:
             mismatched.append(sid)
+        greedy.append(s.tokens)
     emit({"phase": "exactness_f32_2layer", "streams": len(prompts),
           "new_tokens": new_tokens, "mismatched_streams": mismatched,
           "ok": not mismatched})
     if mismatched:
         raise AssertionError(f"engine != greedy_generate on {mismatched}")
+    exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens)
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+# -- the engine's sampled, speculative, prefix-cache and disaggregated
+# paths --
+
+# f32: a divergence whose margin is under this is a near-tie (torch's and
+# cuBLAS's roundings at other product shapes move scores by ~1e-6)
+NEAR_TIE_TOL = 1e-4
+SAMPLED = dict(temperature=0.8, top_p=0.95)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gave them."""
+    return RECORDS["device"]["nvidia_smi"].splitlines()[0]
+
+
+def token_divergence(got, want, scores):
+    """First position where two token sequences differ, and the margin
+    there: `scores(i)` is the f32 score vector whose argmax picks token i
+    (logits for a greedy row, filtered logits plus Gumbel noise for a
+    sampled one); the margin is its best score minus the lower of the two
+    chosen tokens' scores. (None, None) for equal sequences."""
+    got, want = [int(x) for x in got], [int(x) for x in want]
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            s = scores(i).double()
+            return i, float(s.max() - torch.minimum(s[a], s[b]))
+    if len(got) != len(want):
+        raise AssertionError(f"sequences of {len(got)} and {len(want)} tokens")
+    return None, None
+
+
+def assert_tokens_agree(got, want, scores, tol=NEAR_TIE_TOL):
+    """The near-tie rule: equal sequences, or a first divergence whose
+    margin is under `tol`. Returns (position, margin) or (None, None)."""
+    i, margin = token_divergence(got, want, scores)
+    if i is not None and not margin < tol:
+        raise AssertionError(f"tokens diverge at {i} with margin {margin} "
+                             f">= {tol}: not a near-tie")
+    return i, margin
+
+
+def stream_scores(params, cfg, prompt, tokens, seed=0, temperature=0.0,
+                  top_p=1.0):
+    """scores(i) for token_divergence: the teacher-forced logits after
+    prompt + tokens[:i] (llama.forward), through the stream's lane."""
+    def scores(i):
+        seq = np.concatenate([prompt, np.asarray(tokens[:i], np.int32)])
+        logits = llama.forward(params, torch.from_numpy(seq[None]).cuda(),
+                               cfg)[0, -1:].float()
+        lane = [torch.tensor([x], device="cuda")
+                for x in (seed, len(seq) - 1, float(temperature), float(top_p))]
+        return decode_engine.sample_scores(logits, *lane)[0][0]
+    return scores
+
+
+def agreement(params, cfg, prompts, got, want, lanes):
+    """Two runs' tokens, stream by stream: the share of positions that
+    hold the same token, the share of tokens before each stream's first
+    divergence, and every first divergence with its margin."""
+    same = before = total = 0
+    divergences = []
+    for j, (p, a, b) in enumerate(zip(prompts, got, want)):
+        total += len(b)
+        same += sum(int(x) == int(y) for x, y in zip(a, b))
+        i, margin = token_divergence(a, b, stream_scores(params, cfg, p, a,
+                                                         **lanes[j]))
+        before += len(b) if i is None else i
+        if i is not None:
+            # an infinite margin: one side's token lies outside the other
+            # side's top-p nucleus (a divergence at the nucleus boundary)
+            divergences.append({"stream": j, "at": i, "margin": margin
+                                if np.isfinite(margin) else "outside_nucleus"})
+    return {"equal_token_share": same / total,
+            "share_before_first_divergence": before / total,
+            "streams_equal": len(prompts) - len(divergences),
+            "divergences": divergences}
+
+
+def serving_requests():
+    """phase_serving's requests, from the same seeded stream: its warm-up
+    prompt and its 32 prompts of 128 tokens."""
+    rng = np.random.RandomState(SEED)
+    warm = rng.randint(1, 30000, 128).astype(np.int32)
+    return warm, [rng.randint(1, 30000, 128).astype(np.int32)
+                  for _ in range(32)]
+
+
+def serving_engine(cfg, params, **kw):
+    """phase_serving's engine: 8 slots of 288 rows, chunks of 32 steps."""
+    return decode_engine.RaggedDecoder(
+        params, cfg, **{"slots": 8, "max_len": 288, "chunk_tokens": 32,
+                        "prompt_buckets": (128,), "device": "cuda", **kw})
+
+
+def serve(eng, prompts, new_tokens, lanes, kvs=None, pumps=None):
+    """Submit every prompt on its lane (pre-filled when `kvs` is given),
+    pump until drained, pop. Returns (streams, seconds of the drain ended
+    by a device sync); raises unless every stream finished with
+    `new_tokens`. `pumps`, a list, gets (seconds, streams admitted) per
+    pump: each pump ends in its one device->host transfer, so its time is
+    the device's too, and a pump delivers the first tokens of the streams
+    it admits."""
+    if kvs is None:
+        sids = [eng.submit(p, new_tokens, **lane)
+                for p, lane in zip(prompts, lanes)]
+    else:
+        sids = [eng.submit_prefilled(p, new_tokens, kv, **lane)
+                for p, kv, lane in zip(prompts, kvs, lanes)]
+    pumps = [] if pumps is None else pumps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slot_stream):
+        queued, tp = len(eng.queue), time.perf_counter()
+        eng.pump()
+        pumps.append((time.perf_counter() - tp, queued - len(eng.queue)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    streams = [eng.pop_finished(sid) for sid in sids]
+    lens = [len(s.tokens) if s is not None else 0 for s in streams]
+    if lens != [new_tokens] * len(prompts):
+        raise AssertionError(f"streams did not all finish with {new_tokens} "
+                             f"tokens: {lens}")
+    return streams, dt
+
+
+def pump_times(pumps):
+    """Pump times of a drain: the first (the first wave's time to first
+    token, its prefill and one chunk), and the mean of the pumps that
+    admitted streams and of those that only decoded."""
+    admitting = [t for t, n in pumps if n > 0]
+    decoding = [t for t, n in pumps if n == 0]
+    return {"pumps": len(pumps), "first_pump_s": pumps[0][0],
+            "admitting_pump_s": float(np.mean(admitting)) if admitting else None,
+            "decode_only_pump_s": float(np.mean(decoding)) if decoding else None}
+
+
+def bits_equal(a, b) -> bool:
+    return np.array_equal(np.asarray(a, np.float32).view(np.int32),
+                          np.asarray(b, np.float32).view(np.int32))
+
+
+def card_launches(fn) -> int:
+    """Device kernels (and copies) one call of `fn` launches, counted by
+    torch.profiler after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def decode_step_launches(cfg, params):
+    """Launches of one decode step of the 8-slot batch, greedy and sampled,
+    and of the sampler alone (the engine's host-bound cost)."""
+    cache = decode_engine.init_ragged_cache(cfg, 8, 288, "cuda")
+    tok = torch.ones(8, dtype=torch.int32, device="cuda")
+    active = torch.ones(8, dtype=torch.bool, device="cuda")
+    seeds = torch.arange(8, device="cuda")
+    pos = torch.full((8,), 200, dtype=torch.int32, device="cuda")
+    temps = torch.full((8,), SAMPLED["temperature"], device="cuda")
+    top_ps = torch.full((8,), SAMPLED["top_p"], device="cuda")
+    logits = torch.randn((8, cfg.vocab_size), device="cuda")
+    return {
+        "greedy_step": card_launches(lambda: decode_engine.decode_chunk(
+            params, cache, tok, active, cfg, 1)),
+        "sampled_step": card_launches(lambda: decode_engine.decode_chunk_sampled(
+            params, cache, tok, active, seeds, temps, top_ps, cfg, 1)),
+        "sampler": card_launches(lambda: decode_engine._sample_from_logits(
+            logits, seeds, pos, temps, top_ps)),
+    }
+
+
+def phase_prng_card_vs_cpu():
+    """The sampling lanes' threefry keys, bits and uniforms on the card
+    equal the CPU's bit for bit (where the tests hold them against
+    jax.random); the Gumbel noise within 2 ulp, the ulp taken at
+    max(|g|, 1)."""
+    seeds = np.array([0, 1, 7, 2**31 + 7, 12345, 2**32 - 1, 1000, 2024], np.int64)
+    pos = np.array([0, 1, 127, 4095], np.int64)
+    seeds, pos = np.repeat(seeds, len(pos)), np.tile(pos, len(seeds))
+    shape = (32128,)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys = prng.fold_in(prng.prng_key(torch.from_numpy(seeds).to(dev)),
+                            torch.from_numpy(pos).to(dev))
+        out[dev] = [x.cpu() for x in (keys, prng.random_bits(keys, shape),
+                                      prng.uniform(keys, shape),
+                                      prng.gumbel(keys, shape))]
+    exact = {name: bool(torch.equal(a, b)) for name, a, b in zip(
+        ("keys", "bits", "uniform"), out["cpu"][:3], out["cuda"][:3])}
+    g_cpu, g_card = out["cpu"][3].numpy(), out["cuda"][3].numpy()
+    ulp = np.spacing(np.maximum(np.abs(g_cpu), 1.0).astype(np.float32))
+    gap = float((np.abs(g_card.astype(np.float64) - g_cpu) / ulp).max())
+    ok = all(exact.values()) and gap <= 2.0 and bool(np.isfinite(g_card).all())
+    emit({"phase": "prng_card_vs_cpu", "card": card(), "keys": len(seeds),
+          "vocab": shape[0],
+          "bit_exact": exact, "gumbel_max_gap_ulp": gap,
+          "gumbel_max_abs_diff": float(np.abs(g_card - g_cpu).max()), "ok": ok})
+    if not ok:
+        raise AssertionError(f"the lanes differ on the card: {exact}, "
+                             f"gumbel {gap} ulp")
+
+
+def phase_serving_sampled(cfg, params):
+    """phase_serving's 32 requests, sampled (temperature 0.8, top_p 0.95,
+    seed 1000 + i). Checks: every stream finishes, logprobs finite and <=
+    0, four streams replayed alone give the same tokens and logprobs bit
+    for bit (the engine's products keep their shapes: 8 slots, prefill
+    width 8), and behaviour logprobs of 8 streams at temperature 1 beside
+    the teacher-forced log-softmax of llama.forward, which launches
+    flash_fwd_sm90 once a layer. Returns (launches, the 32 streams'
+    tokens)."""
+    warm, prompts = serving_requests()
+    lanes = [dict(SAMPLED, seed=1000 + i) for i in range(len(prompts))]
+    eng = serving_engine(cfg, params)
+    serve(eng, [warm], 32, lanes[:1])  # untimed
+    fa.reset_launch_count()
+    pumps = []
+    streams, dt = serve(eng, prompts, 128, lanes, pumps=pumps)
+    counts = fa.launch_counts()
+    lps = np.array([s.logprobs for s in streams], np.float32)
+    if not (np.isfinite(lps).all() and (lps <= 0.0).all()):
+        raise AssertionError("sampled logprobs not finite and <= 0")
+    replayed = {}
+    for j in (0, 9, 18, 31):
+        (s,), _ = serve(eng, [prompts[j]], 128, [lanes[j]])
+        replayed[j] = (s.tokens == streams[j].tokens
+                       and bits_equal(s.logprobs, streams[j].logprobs))
+    # behaviour logprobs against the teacher-forced forward
+    tf_lanes = [dict(temperature=1.0, top_p=1.0, seed=2000 + i) for i in range(8)]
+    tf_streams, _ = serve(eng, prompts[:8], 128, tf_lanes)
+    seqs = torch.from_numpy(np.stack([
+        np.concatenate([p, np.asarray(s.tokens, np.int32)])
+        for p, s in zip(prompts[:8], tf_streams)])).cuda()
+    fa.reset_launch_count()
+    logits = llama.forward(params, seqs, cfg)
+    torch.cuda.synchronize()
+    score_counts = fa.launch_counts()
+    launched_only("flash_fwd_sm90", score_counts)
+    lsm = torch.log_softmax(logits[:, 127:-1].float(), dim=-1)
+    ref = lsm.gather(-1, seqs[:, 128:, None].long())[..., 0].cpu().numpy()
+    gap = np.abs(np.array([s.logprobs for s in tf_streams], np.float32) - ref)
+    greedy_tps = RECORDS["serving_1b"]["engine_tokens_per_sec"]
+    ok = (all(replayed.values())
+          and score_counts["flash_fwd_sm90"] == cfg.n_layers)
+    emit({"phase": "serving_1b_sampled", "card": card(), "requests": len(prompts),
+          "new_tokens": 128, **SAMPLED, "seeds": "1000 + i", "seconds": dt,
+          "engine_tokens_per_sec": len(prompts) * 128 / dt,
+          "greedy_engine_tokens_per_sec": greedy_tps, **pump_times(pumps),
+          "logprob_min": float(lps.min()), "replayed_alone_bit_exact": replayed,
+          "teacher_forced_flash_launches": score_counts["flash_fwd_sm90"],
+          "teacher_forced_logprob_gap_median": float(np.median(gap)),
+          "teacher_forced_logprob_gap_max": float(gap.max()),
+          "launches_per_decode_step": decode_step_launches(cfg, params),
+          "stats": eng.stats(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"sampled serving: replayed {replayed}, scoring "
+                             f"launches {score_counts}")
+    return add_counts(counts, score_counts), [s.tokens for s in streams]
+
+
+def phase_serving_spec(cfg, params, plain):
+    """The same requests, greedy and then sampled, with spec_depth 4 and the
+    default draft (half the layers, no head), beside plain decoding's
+    tokens/s and tokens (`plain`: mode -> (tokens/s, tokens))."""
+    warm, prompts = serving_requests()
+    counts = {}
+    for mode in ("greedy", "sampled"):
+        lanes = [dict(SAMPLED, seed=1000 + i) if mode == "sampled" else {}
+                 for i in range(len(prompts))]
+        serve(serving_engine(cfg, params, spec_depth=4), [warm], 32, lanes[:1])
+        eng = serving_engine(cfg, params, spec_depth=4)
+        fa.reset_launch_count()
+        pumps = []
+        streams, dt = serve(eng, prompts, 128, lanes, pumps=pumps)
+        add_counts(counts, fa.launch_counts())
+        spec = eng.stats()["spec"]
+        plain_tps, plain_tokens = plain[mode]
+        emit({"phase": "serving_1b_spec", "card": card(), "mode": mode, "seconds": dt,
+              "engine_tokens_per_sec": len(prompts) * 128 / dt,
+              "plain_engine_tokens_per_sec": plain_tps, **spec,
+              **pump_times(pumps),
+              "agreement_with_plain": agreement(
+                  params, cfg, prompts, [s.tokens for s in streams],
+                  plain_tokens, lanes)})
+    return counts
+
+
+def phase_serving_prefix(cfg, params):
+    """32 greedy requests of a shared 96-token system prefix and a unique
+    32-token tail, 32 new tokens each; block 32, buckets (32, 128); the
+    cache off, then on. Hit rate over the timed requests, tokens/s both
+    ways, agreement of warm and cold tokens."""
+    rng = np.random.RandomState(SEED + 7)
+    system = rng.randint(1, 30000, 96).astype(np.int32)
+    prompts = [np.concatenate([system, rng.randint(1, 30000, 32).astype(np.int32)])
+               for _ in range(32)]
+    warm = rng.randint(1, 30000, 128).astype(np.int32)
+    lanes = [{}] * len(prompts)
+    runs, counts = {}, {}
+    for mode in ("off", "on"):
+        pc = kv_prefix_cache.PrefixCache(block=32) if mode == "on" else None
+        eng = serving_engine(cfg, params, prompt_buckets=(32, 128),
+                             prefix_cache=pc)
+        serve(eng, [warm], 32, lanes[:1])  # untimed, no shared prefix
+        before = pc.stats() if pc else {}
+        fa.reset_launch_count()
+        pumps = []
+        streams, dt = serve(eng, prompts, 32, lanes, pumps=pumps)
+        add_counts(counts, fa.launch_counts())
+        after = pc.stats() if pc else {}
+        runs[mode] = (streams, dt, {k: after[k] - before[k]
+                                    for k in ("hits", "misses")} if pc else None,
+                      pump_times(pumps))
+    hm = runs["on"][2]
+    rec = {"phase": "serving_1b_prefix", "card": card(), "requests": len(prompts),
+          "prefix_tokens": 96, "tail_tokens": 32, "new_tokens": 32, "block": 32,
+          "hits": hm["hits"], "misses": hm["misses"],
+          "hit_rate": hm["hits"] / (hm["hits"] + hm["misses"]),
+          "engine_tokens_per_sec_cache_on": len(prompts) * 32 / runs["on"][1],
+          "engine_tokens_per_sec_cache_off": len(prompts) * 32 / runs["off"][1],
+          "pumps_cache_on": runs["on"][3], "pumps_cache_off": runs["off"][3],
+          "warm_vs_cold": agreement(params, cfg, prompts,
+                                    [s.tokens for s in runs["on"][0]],
+                                    [s.tokens for s in runs["off"][0]], lanes)}
+    emit(rec)
+    # the first wave of 8 misses and fills the cache, 24 hits follow
+    if (hm["hits"], hm["misses"]) != (24, 8):
+        raise AssertionError(f"prefix cache: {hm['hits']} hits and "
+                             f"{hm['misses']} misses, expected 24 and 8")
+    return counts
+
+
+def phase_serving_disaggregated(cfg, params, inline_tokens):
+    """The first 8 sampled requests prefilled apart (prefill_kv_sampled),
+    their KV taken to the host and adopted through submit_prefilled;
+    tokens against the inline admission's (phase_serving_sampled)."""
+    _, prompts = serving_requests()
+    prompts, n = prompts[:8], 8
+    lanes = [dict(SAMPLED, seed=1000 + i) for i in range(n)]
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    k, v, tok0, lp0 = decode_engine.prefill_kv_sampled(
+        params, torch.from_numpy(np.stack(prompts)).cuda(), [128] * n,
+        [x["seed"] for x in lanes], [x["temperature"] for x in lanes],
+        [x["top_p"] for x in lanes], cfg, 288)
+    k, v, tok0, lp0 = k.cpu(), v.cpu(), tok0.cpu(), lp0.cpu()  # the host hop
+    prefill_s = time.perf_counter() - t0
+    kvs = [{"k": k[:, i], "v": v[:, i], "first_token": int(tok0[i]),
+            "first_logprob": float(lp0[i]), "true_len": 128} for i in range(n)]
+    eng = serving_engine(cfg, params)
+    streams, dt = serve(eng, prompts, 128, lanes, kvs=kvs)
+    counts = fa.launch_counts()
+    got = [s.tokens for s in streams]
+    equal = sum(a == b for a, b in zip(got, inline_tokens))
+    emit({"phase": "serving_1b_disaggregated", "card": card(), "requests": n,
+          "kv_bytes_to_host": 2 * k.numel() * k.element_size(),
+          "prefill_and_host_hop_seconds": prefill_s, "decode_seconds": dt,
+          "bit_equal_streams": equal,
+          "agreement_with_inline": agreement(params, cfg, prompts, got,
+                                             inline_tokens[:n], lanes)})
+    # both sides run the same [8, 128] prefill into the same slots
+    if equal != n:
+        raise AssertionError(f"disaggregated admission: {equal} of {n} "
+                             f"streams equal inline admission's tokens")
+    return counts
+
+
+def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens):
+    """phase_exactness_f32's model (1B width, 2 layers, f32, TF32 off)
+    through the other engine paths, each under the near-tie rule
+    (NEAR_TIE_TOL) against the path it must reproduce: sampled streams
+    amid others vs alone; speculation at depth 2 and 4 vs plain, greedy
+    and sampled; a slot speculating within 4 rows of the cache end; warm
+    (prefix cache) vs cold admission; disaggregated vs inline admission;
+    and behaviour logprobs vs the teacher-forced forward (the f32 flash
+    kernel) within 1e-4."""
+    kw = dict(slots=8, max_len=288, chunk_tokens=32, prompt_buckets=(64, 128),
+              device="cuda")
+    lanes = [dict(SAMPLED, seed=3000 + i) for i in range(len(prompts))]
+    greedy_lanes = [{}] * len(prompts)
+
+    def run(eng, ps, ls, n=new_tokens, kvs=None):
+        return [s.tokens for s in serve(eng, ps, n, ls, kvs)[0]], eng
+
+    def check(name, ps, got, want, ls, **extra):
+        divs = []
+        for p, a, b, lane in zip(ps, got, want, ls):
+            i, margin = assert_tokens_agree(
+                a, b, stream_scores(params, cfg, p, a, **lane))
+            if i is not None:
+                divs.append({"at": i, "margin": margin})
+        emit({"phase": "exactness_f32_2layer", "check": name, "card": card(),
+              "streams": len(ps), "divergences": divs,
+              "near_tie_tol": NEAR_TIE_TOL, **extra, "ok": True})
+
+    eng = decode_engine.RaggedDecoder(params, cfg, **kw)
+    sampled, _ = run(eng, prompts, lanes)
+    alone = [run(eng, [prompts[j]], [lanes[j]])[0][0] for j in (0, 5, 11)]
+    check("sampled_amid_others_vs_alone", [prompts[j] for j in (0, 5, 11)],
+          alone, [sampled[j] for j in (0, 5, 11)], [lanes[j] for j in (0, 5, 11)])
+    for depth in (2, 4):
+        spec_kw = dict(kw, spec_depth=depth)
+        got, eng = run(decode_engine.RaggedDecoder(params, cfg, **spec_kw),
+                       prompts, greedy_lanes)
+        check(f"spec_depth{depth}_greedy_vs_plain", prompts, got, greedy,
+              greedy_lanes, acceptance_rate=eng.stats()["spec"]["acceptance_rate"])
+        got, eng = run(decode_engine.RaggedDecoder(params, cfg, **spec_kw),
+                       prompts, lanes)
+        check(f"spec_depth{depth}_sampled_vs_plain", prompts, got, sampled,
+              lanes, acceptance_rate=eng.stats()["spec"]["acceptance_rate"])
+    # 150-token prompts in 160 rows: the depth-4 rounds run past the end
+    rng = np.random.RandomState(SEED + 2)
+    end_prompts = [rng.randint(1, 30000, 150).astype(np.int32) for _ in range(4)]
+    end_kw = dict(kw, max_len=160, prompt_buckets=(160,))
+    for name, ls in (("greedy", greedy_lanes[:4]), ("sampled", lanes[:4])):
+        plain_toks, _ = run(decode_engine.RaggedDecoder(params, cfg, **end_kw),
+                            end_prompts, ls, n=9)
+        got, _ = run(decode_engine.RaggedDecoder(params, cfg, spec_depth=4,
+                                                 **end_kw), end_prompts, ls, n=9)
+        check(f"spec_near_cache_end_{name}", end_prompts, got, plain_toks, ls)
+    # a shared 64-token head: cold engine vs prefix-cached engine
+    head = rng.randint(1, 30000, 64).astype(np.int32)
+    pc_prompts = [np.concatenate([head, rng.randint(1, 30000, int(n)).astype(np.int32)])
+                  for n in rng.randint(8, 60, 12)]
+    cold, _ = run(decode_engine.RaggedDecoder(params, cfg, **kw), pc_prompts, lanes)
+    pc = kv_prefix_cache.PrefixCache(block=32)
+    warm, _ = run(decode_engine.RaggedDecoder(params, cfg, prefix_cache=pc, **kw),
+                  pc_prompts, lanes)
+    check("warm_vs_cold", pc_prompts, warm, cold, lanes, **pc.stats())
+    if pc.stats()["hits"] == 0:
+        raise AssertionError("the prefix cache served no hit")
+    # disaggregated: prefill_kv_sampled, the host hop, submit_prefilled
+    padded = np.zeros((len(prompts), 128), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    k, v, tok0, lp0 = decode_engine.prefill_kv_sampled(
+        params, torch.from_numpy(padded).cuda(), [len(p) for p in prompts],
+        [x["seed"] for x in lanes], [x["temperature"] for x in lanes],
+        [x["top_p"] for x in lanes], cfg, 288)
+    k, v = k.cpu(), v.cpu()
+    kvs = [{"k": k[:, i], "v": v[:, i], "first_token": int(tok0[i]),
+            "first_logprob": float(lp0[i]), "true_len": len(p)}
+           for i, p in enumerate(prompts)]
+    got, _ = run(decode_engine.RaggedDecoder(params, cfg, **kw), prompts, lanes,
+                 kvs=kvs)
+    check("disaggregated_vs_inline", prompts, got, sampled, lanes)
+    # behaviour logprobs against the teacher-forced forward
+    tf_lanes = [dict(temperature=1.0, top_p=1.0, seed=4000 + i) for i in range(8)]
+    streams = serve(decode_engine.RaggedDecoder(params, cfg, **kw), prompts[:8],
+                    new_tokens, tf_lanes)[0]
+    gaps = []
+    fa.reset_launch_count()
+    for p, s in zip(prompts[:8], streams):
+        seq = torch.from_numpy(np.concatenate([p, np.asarray(s.tokens, np.int32)]))
+        logits = llama.forward(params, seq[None].cuda(), cfg)[0].float()
+        lsm = torch.log_softmax(logits[len(p) - 1:-1], dim=-1)
+        ref = lsm.gather(-1, seq[len(p):, None].long().cuda())[:, 0].cpu().numpy()
+        gaps.append(float(np.abs(np.asarray(s.logprobs, np.float32) - ref).max()))
+    counts = fa.launch_counts()
+    ok = max(gaps) <= 1e-4 and counts["flash_fwd"] == 8 * cfg.n_layers
+    emit({"phase": "exactness_f32_2layer", "card": card(),
+          "check": "logprobs_vs_teacher_forced",
+          "streams": 8, "max_gap": max(gaps), "tol": 1e-4, "launches": counts,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"f32 logprobs vs teacher-forced: {gaps}, "
+                             f"launches {counts}")
 
 
 def bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, seed):
@@ -865,26 +1349,11 @@ def sdpa_bwd_ms(q, k, v, do):
     return both - only_fwd, both, only_fwd
 
 
-def run_entry(entry, args, causal=True):
-    """Launch the dq or dkv C entry point `entry` on `args` (q, k, v, do,
-    lse, delta) directly: the wrappers route bf16 at D=128 to the Hopper
-    kernels, so this is how the mma.sync kernels they replaced are timed
-    at the same shapes. Returns the outputs."""
-    q, k = args[0], args[1]
-    outs = ([torch.empty_like(q)] if entry.startswith("flash_bwd_dq")
-            else [torch.empty_like(k), torch.empty_like(k)])
-    fa._call(entry, [*args, *outs, *fa._dims(q, k, causal, entry)],
-             fa._shape_note(q, k))
-    return outs
-
-
-def time_kernel(entry, shape, peaks, seed, plain_iters=5, replaced=None):
+def time_kernel(entry, shape, peaks, seed, plain_iters=5):
     """C entry point `entry` at `shape` (B, Hq, Hkv, T, S, D; bf16, causal),
     through its wrapper, in turns plain, kernel, kernel, plain, library;
     with its error against the plain version there, held to TOL / BWD_TOL,
-    and its bound. `replaced`: the entry point of the kernel that `entry`
-    replaced, held to the same tolerance and timed in turns with it
-    (kernel, replaced, replaced, kernel)."""
+    and its bound."""
     b, hq, hkv, t, s, d = shape
     dtype = torch.bfloat16
     kernel = entry.removesuffix("_sm90")  # the wrapper's name
@@ -922,24 +1391,7 @@ def time_kernel(entry, shape, peaks, seed, plain_iters=5, replaced=None):
         run_plain = lambda: plain(*args, causal=True)  # noqa: E731
         lib = None
     plain_a = time_ms(run_plain, iters=plain_iters, warmup=1)
-    old = None
-    if replaced is None:
-        kern_a, kern_b = time_ms(run), time_ms(run)
-    else:
-        want = run_plain()
-        old_errs = output_errors(replaced, BWD_KERNELS[kernel][2], run_entry(replaced, args),
-                                 want if isinstance(want, tuple) else (want,))
-        if any(rel > BWD_TOL[dtype] for _, rel in old_errs.values()):
-            raise AssertionError(f"{replaced} disagrees with its plain version at "
-                                 f"{shape}: {old_errs} (tol {BWD_TOL[dtype]})")
-        del want
-        run_old = lambda: run_entry(replaced, args)  # noqa: E731
-        kern_a = time_ms(run)
-        old_a, old_b = time_ms(run_old), time_ms(run_old)
-        kern_b = time_ms(run)
-        old = {"name": replaced, "ms": min(old_a, old_b), "ms_runs": [old_a, old_b],
-               "graph_ms": graph_ms(run_old),
-               "max_abs_err": max(e for e, _ in old_errs.values())}
+    kern_a, kern_b = time_ms(run), time_ms(run)
     kern_graph = graph_ms(run)
     plain_b = time_ms(run_plain, iters=plain_iters, warmup=1)
     if lib is None:
@@ -956,9 +1408,6 @@ def time_kernel(entry, shape, peaks, seed, plain_iters=5, replaced=None):
            **lib, "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": bound_by, "achieved_tflops": flops / (ms / 1e3) / 1e12,
            "share_of_bound": bound_ms / ms, "max_abs_err": err}
-    if old is not None:
-        row["replaced"] = {**old, "share_of_bound": bound_ms / old["ms"]}
-        row["speedup_over_replaced"] = old["ms"] / ms
     emit({"phase": "kernel_timing", **row})
     torch.cuda.empty_cache()
     return row
@@ -975,9 +1424,6 @@ SOURCES = {
     "flash_bwd_dkv_sm90": ("ray_tpu_torch/csrc/flash_bwd_sm90.cu",
                            "ray_tpu/ops/flash_attention.py:707"),
 }
-# the Hopper entry point -> the mma.sync kernel (csrc/flash_bwd.cu) it
-# replaced on the main path, timed beside it in the kernels line
-REPLACED = {"flash_bwd_dq_sm90": "flash_bwd_dq", "flash_bwd_dkv_sm90": "flash_bwd_dkv"}
 # main-path shapes (B, Hq, Hkv, T, S, D): the forward's 1B scoring shape
 # (and its 350m training shape), the fused backward's 350m training
 # shape, and the dq/dkv kernels' at 350m width with T = S = 16384
@@ -992,13 +1438,11 @@ MAIN_SHAPES = {
 def phase_kernels_line(launches, peaks, build_info):
     """One entry per main-path kernel: its launches on the main paths, its
     time, error, bound, plain and library times, share of bound, and
-    ptxas's registers (and the shared memory of the Hopper kernels); for
-    dq and dkv, the mma.sync kernel each replaced, timed in turns with it."""
+    ptxas's registers and shared memory."""
     kernels = []
     for i, (kernel, shape) in enumerate(MAIN_SHAPES.items()):
         row = time_kernel(kernel, shape, peaks, SEED + 400 + i,
-                          plain_iters=2 if shape[3] > 4096 else 5,
-                          replaced=REPLACED.get(kernel))
+                          plain_iters=2 if shape[3] > 4096 else 5)
         src, replaces = SOURCES[kernel]
         entry = {"name": kernel, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches.get(kernel, 0),
@@ -1009,10 +1453,6 @@ def phase_kernels_line(launches, peaks, build_info):
                  "graph_ms": row["kernel_graph_ms"], **build_info[kernel]}
         if "library_graph_ms" in row:
             entry["library_graph_ms"] = row["library_graph_ms"]
-        if "replaced" in row:
-            entry["replaced"] = {**row["replaced"], "source": "ray_tpu_torch/csrc/flash_bwd.cu",
-                                 **build_info[row["replaced"]["name"]]}
-            entry["speedup_over_replaced"] = row["speedup_over_replaced"]
         if kernel == "flash_fwd_sm90":
             train_row = time_kernel(kernel, MAIN_SHAPES["flash_bwd_fused_sm90"],
                                     peaks, SEED + 410)
@@ -1049,7 +1489,18 @@ def main() -> None:
     by_path = {}
     with torch.inference_mode():
         by_path["scoring_1b"] = phase_scoring(cfg, params)
-        by_path["serving_1b"] = phase_serving(cfg, params)
+        by_path["serving_1b"], greedy_tokens = phase_serving(cfg, params)
+        phase_prng_card_vs_cpu()
+        by_path["serving_1b_sampled"], sampled_tokens = phase_serving_sampled(
+            cfg, params)
+        by_path["serving_1b_spec"] = phase_serving_spec(cfg, params, {
+            "greedy": (RECORDS["serving_1b"]["engine_tokens_per_sec"],
+                       greedy_tokens),
+            "sampled": (RECORDS["serving_1b_sampled"]["engine_tokens_per_sec"],
+                        sampled_tokens)})
+        by_path["serving_1b_prefix"] = phase_serving_prefix(cfg, params)
+        by_path["serving_1b_disaggregated"] = phase_serving_disaggregated(
+            cfg, params, sampled_tokens)
         del params
         torch.cuda.empty_cache()
         phase_exactness_f32()

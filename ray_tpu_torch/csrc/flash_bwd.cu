@@ -14,9 +14,7 @@
 //
 // bf16 at head_dim 128 (every main path) takes the Hopper kernels of
 // flash_bwd_sm90.cu (fused, dkv) and flash_bwd_dq_sm90.cu instead; these
-// take head_dim 16/32/64 and f32. flash_bwd_dq and flash_bwd_dkv still
-// build bf16 at 128, which no wrapper launches: chip_smoke.py times them
-// there beside the Hopper kernels that replaced them.
+// take head_dim 16/32/64 and f32, and refuse bf16 at 128.
 //
 // Contract (as the TPU kernels): q/do [B,Hq,T,D], k/v [B,Hkv,S,D], all
 // contiguous, one dtype; lse [B,Hq,T] f32, natural log, from the forward;
@@ -868,8 +866,8 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t s) {
     case 16: return launch<T, 16, M>(a, s);
     case 32: return launch<T, 32, M>(a, s);
     case 64: return launch<T, 64, M>(a, s);
-    case 128:  // the fused bf16 kernel at 128 is flash_bwd_sm90's (dq and dkv: see the top note)
-      if constexpr (sizeof(T) == 2 && M == Mode::kFused) return cudaErrorInvalidValue;
+    case 128:  // bf16 at 128 is flash_bwd_sm90.cu's and flash_bwd_dq_sm90.cu's
+      if constexpr (sizeof(T) == 2) return cudaErrorInvalidValue;
       else return launch<T, 128, M>(a, s);
     default: return cudaErrorInvalidValue;
   }

@@ -405,6 +405,31 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache: dict):
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + t}
 
 
+def draft_config(cfg: LlamaConfig, n_layers: int) -> LlamaConfig:
+    """Config of the shared-trunk draft: the target's first ``n_layers``
+    blocks with its own final norm and unembedding, so the draft's logits
+    live in the target's token space."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"draft depth {n_layers} outside [1, {cfg.n_layers}]")
+    return LlamaConfig(**{**cfg.__dict__, "n_layers": n_layers})
+
+
+def draft_params(params, n_layers: int) -> dict:
+    """Weight VIEW of the shared-trunk draft: the embedding, the first
+    ``n_layers`` stacked blocks (slices of the target's tensors, no copy),
+    the final norm and, when untied, the lm_head. The draft's layer-i k/v
+    for a position equals the target's (the same weights on the same
+    prefix), which is why speculative decoding lets the draft read the
+    target's cache (``decode_engine.decode_chunk_spec``)."""
+    out = {"embed": params["embed"],
+           "layers": {k: v[:n_layers] for k, v in params["layers"].items()},
+           "final_norm": params["final_norm"]}
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"]
+    return out
+
+
 def generate_scan(params, prompt, cfg: LlamaConfig, max_new_tokens: int,
                   cache: dict):
     """Prefill + greedy decode as one Python loop over steps. Returns

@@ -109,10 +109,27 @@ def test_no_decode_room_matches_jax(models):
 
 
 def test_sampled_submit_is_not_silently_greedy(models):
-    _, _, tcfg, tparams = models
-    eng = tde.RaggedDecoder(tparams, tcfg, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="sampled lanes"):
-        eng.submit([1, 2, 3], 4, temperature=0.7)
+    """A sampled submit samples: its tokens are the JAX engine's sampled
+    tokens (near-tie rule, tests/test_torch_sampling.py) and differ from
+    the greedy ones."""
+    from test_torch_sampling import assert_streams_agree, stream_scores
+
+    jcfg, jparams, tcfg, tparams = models
+    prompt = np.array([1, 2, 3], np.int32)
+    lane = dict(temperature=0.7, seed=2024)
+    runs = []
+    for eng in (tde.RaggedDecoder(tparams, tcfg, device="cpu", **ENGINE),
+                jde.RaggedDecoder(jparams, jcfg, **ENGINE)):
+        sid = eng.submit(prompt, 8, **lane)
+        eng.drain()
+        s = eng.pop_finished(sid)
+        runs.append((s.tokens, s.logprobs))
+    got, want = runs
+    assert len(got[0]) == 8 and all(lp < 0.0 for lp in got[1])
+    assert_streams_agree(got, want, stream_scores(tparams, tcfg, prompt,
+                                                  got[0], **lane))
+    greedy = tl.greedy_generate(tparams, torch.from_numpy(prompt[None]), tcfg, 8)
+    assert got[0] != greedy[0, len(prompt):].tolist()
 
 
 def test_prefill_drops_out_of_range_slots_and_overwrites_whole_slot(models):
