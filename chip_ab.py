@@ -1,9 +1,11 @@
 """Times the port's flash-attention forward and backward kernels of one
 checkout at the main-path shapes, on one NVIDIA GPU; or, with `engine`,
-its greedy serving engine at Llama-1B.
+its greedy serving engine at Llama-1B; or, with `server`, where the
+serving wrappers' time goes at Llama-1B.
 
     python3 chip_ab.py <checkout>
     python3 chip_ab.py <checkout> engine
+    python3 chip_ab.py <checkout> server
 
 To compare two versions on one card, unpack both (``git archive``) into
 directories that ``.gitignore`` lists and time them in turns in one
@@ -27,6 +29,16 @@ many rows and at the slot width of 8 (rows past the streams go to an
 out-of-range slot and are dropped), ms per call by CUDA events, and
 the device launches (kernels and copies, by torch.profiler) of one such
 call and of one greedy decode step of the 8-slot batch.
+
+`server` serves `phase_serving`'s 32 greedy requests (128 new tokens, 8
+slots, chunks of 32, one set of seeded weights) four ways, in turns
+(A B C D D C B A), one line each with tokens/s and the chunk-normalised
+time between tokens: A the engine pumped on the main thread, B the same
+engine pumped on one other thread while the main thread waits, C an
+`LLMServer` answering all 32 by `generate()` from 16 handler threads,
+D `chip_smoke.py`'s `serving_1b_server` traffic (half streamed through a
+poller). A against B isolates the pump's thread; B against C the
+server's own work; C against D the streaming poller.
 """
 
 import json
@@ -132,6 +144,90 @@ def engine(smoke) -> None:
         admission_widths(smoke, decode_engine, cfg, params)
 
 
+def server(smoke) -> None:
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.serve import llm as serve_llm
+
+    warm, prompts = smoke.serving_requests()
+    new_tokens, chunk = 128, 32
+    params, cfg = serve_llm.build_model("1b", max_len=288, seed=smoke.SEED,
+                                        device="cuda")
+    eng = smoke.serving_engine(cfg, params)
+    smoke.serve(eng, [warm], 32, [{}])  # untimed
+
+    def engine_main():
+        streams, dt = smoke.serve(eng, prompts, new_tokens,
+                                  [{}] * len(prompts))
+        return dt, [s.token_times for s in streams]
+
+    def engine_thread():
+        out = []
+
+        def run():  # inference mode is thread-local, as in LLMServer's pump
+            with torch.inference_mode():
+                out.append(engine_main())
+
+        th = threading.Thread(target=run)
+        th.start()
+        th.join()
+        return out[0]
+
+    def with_server(fn):
+        srv = serve_llm.LLMServer(
+            "1b", slots=8, max_len=288, chunk_tokens=chunk,
+            prompt_buckets=(128,), params_blob=params, device="cuda")
+        srv.generate(warm.tolist(), 32)  # untimed
+        try:
+            results, dt = fn(srv)
+        finally:
+            if not srv.shutdown(30):
+                raise AssertionError("the server did not drain")
+        if any(len(r["tokens"]) != new_tokens for r in results):
+            raise AssertionError("a request ended short")
+        return dt, [r["token_times_s"] for r in results]
+
+    def server_generate(srv):
+        results = [None] * len(prompts)
+        sem = threading.Semaphore(16)
+
+        def one(i):
+            with sem:
+                results[i] = srv.generate(prompts[i].tolist(), new_tokens)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return results, time.perf_counter() - t0
+
+    def server_mixed(srv):
+        results, dt, *_ = smoke.serve_through_server(
+            srv, prompts, new_tokens, lambda k: None)
+        return results, dt
+
+    modes = {"A_engine_main_thread": engine_main,
+             "B_engine_other_thread": engine_thread,
+             "C_server_generate": lambda: with_server(server_generate),
+             "D_server_generate_and_stream": lambda: with_server(server_mixed)}
+    order = list(modes) + list(modes)[::-1]
+    with torch.inference_mode():
+        for turn, name in enumerate(order):
+            dt, stamps = modes[name]()
+            gaps = np.concatenate([np.diff(np.asarray(t)) for t in stamps])
+            smoke.emit({"phase": "server_ab", "turn": turn, "mode": name,
+                        "card": smoke.card(), "seconds": dt,
+                        "tokens_per_sec": len(prompts) * new_tokens / dt,
+                        "tbt_ms_p50": 1e3 * float(np.percentile(
+                            gaps[gaps > 0] / chunk, 50))})
+
+
 def main() -> None:
     tree = os.path.abspath(sys.argv[1])
     os.chdir(tree)
@@ -142,6 +238,9 @@ def main() -> None:
     from ray_tpu_torch.ops import flash_attention as fa
 
     smoke.phase_device()
+    if sys.argv[2:] == ["server"]:
+        server(smoke)
+        return
     libs = [p[:-3] for p in os.listdir("ray_tpu_torch/csrc") if p.endswith(".cu")]
     smoke._kernels.build(sorted(libs))
     if sys.argv[2:] == ["engine"]:

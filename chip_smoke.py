@@ -10,8 +10,12 @@ requests, whose outputs are scored again), then every other kind of
 request the engine serves: sampled lanes (whose threefry bits must equal
 the CPU's, whose replays must equal bit for bit, and whose behaviour
 logprobs are set beside a teacher-forced forward), speculative decoding,
-the prefix cache and disaggregated prefill, with an f32 2-layer copy
-holding each of those paths to the one it must reproduce. Then the
+the prefix cache and disaggregated prefill, then the serving wrappers
+(LLMServer's pump thread answering the same 32 requests from 16 handler
+threads, by generate() and by streaming, through a live weight swap, and
+a PrefillWorker's KV handed to it: tokens/s, time to first token and time
+between tokens from the per-token stamps), with an f32 2-layer copy
+holding each engine path to the one it must reproduce. Then the
 training path: Llama-350m at B=8 x T=2048 and Llama-1B at B=2 x T=2048,
 both at full width and depth (bench.py's headline configurations), a
 2-layer 350m-width step at T=16384 that takes the dq + dkv backward
@@ -32,9 +36,11 @@ device.
 from __future__ import annotations
 
 import json
+import logging
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -43,6 +49,8 @@ import torch
 from ray_tpu_torch import _kernels, train
 from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.serve import llm as serve_llm
+from ray_tpu_torch.serve import llm_pool
 from ray_tpu_torch.utils import prng
 from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
@@ -860,6 +868,270 @@ def phase_serving_disaggregated(cfg, params, inline_tokens):
     return counts
 
 
+class PumpErrors(logging.Handler):
+    """Collects the port's "decode pump error" records: a server's pump
+    thread survives any exception (as a replica must), so a failed kernel
+    build or a sticky CUDA error there would only show as a stream that
+    never finishes. The serving phase fails on the record instead."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        if record.getMessage() == "decode pump error":
+            self.records.append(self.format(record))
+
+
+def percentiles(xs, unit=1.0):
+    return {"p50": unit * float(np.percentile(xs, 50)),
+            "p99": unit * float(np.percentile(xs, 99))}
+
+
+POLL_TICK_S = 0.01  # a consumer polling its streams at RPC pace
+
+
+def serve_through_server(srv, prompts, new_tokens, on_progress,
+                         concurrency=16):
+    """phase_serving's requests through the server's entry points from
+    `concurrency` handler threads (bench.py's decode_serve_1b): even
+    requests by generate(), odd ones by submit_stream() and a poller
+    thread that drains every live stream with ONE poll_streams() per tick
+    (every POLL_TICK_S), stamping tokens (perf_counter) as they reach it.
+    `on_progress(k)` runs on the calling thread when the k-th request
+    finishes. Returns (results, seconds, poll ticks, poll RPCs the server
+    counted over them, streams polled per tick)."""
+    n = len(prompts)
+    results = [None] * n
+    errors = []
+    lock = threading.Lock()
+    live = {}  # sid -> (request index, result being filled)
+    done = [threading.Event() for _ in range(n)]
+    finished = threading.Semaphore(0)
+    stop = threading.Event()
+    sem = threading.Semaphore(concurrency)
+    per_tick = []  # streams polled by each tick
+
+    def one(i):
+        try:
+            with sem:
+                p = prompts[i].tolist()
+                if i % 2 == 0:
+                    results[i] = srv.generate(p, new_tokens)
+                    return
+                r = {"tokens": [], "token_times_s": [], "versions": set(),
+                     "submitted_s": time.perf_counter()}
+                sid = srv.submit_stream({"prompt_ids": p,
+                                         "max_tokens": new_tokens})["sid"]
+                with lock:
+                    live[sid] = (i, r)
+                if not done[i].wait(timeout=300):
+                    raise TimeoutError(f"stream {i} did not finish")
+        except Exception as e:  # noqa: BLE001 — raised on the caller
+            errors.append(e)
+        finally:
+            finished.release()
+
+    def tick():
+        with lock:
+            sids = list(live)
+        if not sids:
+            return
+        out = srv.poll_streams(sids)
+        t = time.perf_counter()
+        per_tick.append(len(sids))
+        for sid, got in out.items():
+            i, r = live[sid]
+            r["tokens"] += got["tokens"]
+            r["token_times_s"] += [t] * len(got["tokens"])
+            if got["version"] is not None:
+                r["versions"].add(got["version"])
+            if got["done"]:
+                (r["weights_version"],) = r.pop("versions")
+                results[i] = r
+                with lock:
+                    del live[sid]
+                done[i].set()
+
+    def poller():
+        try:
+            while not stop.is_set():
+                tick()
+                time.sleep(POLL_TICK_S)
+        except Exception as e:  # noqa: BLE001 — raised on the caller
+            errors.append(e)
+            for ev in done:
+                ev.set()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    polling = threading.Thread(target=poller)
+    polls0 = srv.stats()["stream_polls"]
+    t0 = time.perf_counter()
+    polling.start()
+    for th in threads:
+        th.start()
+    for k in range(n):
+        if not finished.acquire(timeout=300):
+            raise TimeoutError(f"{n - k} requests did not finish")
+        on_progress(k + 1)
+    dt = time.perf_counter() - t0
+    stop.set()
+    for th in threads + [polling]:
+        th.join(timeout=60)
+        if th.is_alive():
+            raise AssertionError("a handler or poller thread did not end")
+    if errors:
+        raise errors[0]
+    return (results, dt, len(per_tick), srv.stats()["stream_polls"] - polls0,
+            per_tick)
+
+
+def phase_serving_server(greedy_tokens):
+    """The serving wrappers at Llama-1B: LLMServer (8 slots of 288 rows,
+    chunks of 32; weights equal to phase_serving's, the same seeded
+    init_params) serves phase_serving's 32 requests from 16 handler
+    threads, half by generate() and half streamed; an update_weights to
+    the same tree as version 1 is sent once 4 have finished; then four
+    streams prefilled by a PrefillWorker are adopted. Raises unless the
+    tokens agree with phase_serving's (near-tie rule), every stream is
+    stamped once a token, a batched poll tick costs one RPC, streams
+    finished before the swap carry version 0 and those admitted after it
+    version 1, the adopted streams equal their inline runs bit for bit,
+    shutdown drains and ends the pump, and no pump error was logged.
+    Reports tokens/s, time to first token and time between tokens
+    (bench.py's normalisation: positive stamp gaps over the chunk).
+    Returns the path's flash launches: none, the engine attends by a
+    masked einsum, as the JAX package's does."""
+    warm, prompts = serving_requests()
+    new_tokens, chunk = 128, 32
+    errors = PumpErrors()
+    port_log = logging.getLogger("ray_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        fa.reset_launch_count()
+        srv = serve_llm.LLMServer(
+            "1b", slots=8, max_len=288, chunk_tokens=chunk,
+            prompt_buckets=(128,), seed=SEED, device="cuda")
+        srv.generate(warm.tolist(), 32)  # first prefill + chunk, untimed
+        pumps0 = srv.stats()["pumps"]
+        swap = {}
+
+        def on_progress(finished):
+            if finished != 4:
+                return
+            swap["sent"] = time.perf_counter()
+            srv.update_weights(srv.engine.params, 1)
+            deadline = time.monotonic() + 60
+            while srv.weights_version() != 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the weight swap never landed")
+                time.sleep(0.001)
+            swap["landed"] = time.perf_counter()
+
+        results, dt, ticks, poll_rpcs, per_tick = serve_through_server(
+            srv, prompts, new_tokens, on_progress)
+        pumps = srv.stats()["pumps"] - pumps0
+        counts = fa.launch_counts()
+
+        worker = llm_pool.PrefillWorker(
+            "1b", max_len=288, prompt_buckets=(128,),
+            params_blob=srv.engine.params, device="cuda")
+        t0 = time.perf_counter()
+        kvs = [worker.prefill(p.tolist()) for p in prompts[:4]]
+        prefill_s = time.perf_counter() - t0
+        adopted = [None] * 4
+
+        def adopt(j):
+            adopted[j] = srv.adopt_prefilled(kvs[j], prompts[j].tolist(),
+                                             new_tokens)
+
+        adopters = [threading.Thread(target=adopt, args=(j,))
+                    for j in range(4)]
+        for th in adopters:
+            th.start()
+        for th in adopters:
+            th.join(timeout=300)
+        drained = srv.shutdown(30)
+        pump_alive = srv._pump_thread.is_alive()
+    finally:
+        port_log.removeHandler(errors)
+
+    stamps_ok = all(
+        r is not None
+        and len(r["tokens"]) == len(r["token_times_s"]) == new_tokens
+        and r["submitted_s"] <= r["token_times_s"][0]
+        and all(b >= a for a, b in zip(r["token_times_s"],
+                                       r["token_times_s"][1:]))
+        for r in results + adopted)
+    ttft = [r["token_times_s"][0] - r["submitted_s"] for r in results]
+    gaps = np.concatenate([np.diff(r["token_times_s"]) for r in results])
+    tbt = gaps[gaps > 0] / chunk
+    versions = [r["weights_version"] for r in results]
+    # a stream's first token lands at the fetch of the pump that admitted
+    # it, and the swap happens between pumps: a first token before the
+    # swap was sent means version 0; a generate() stream whose first token
+    # came after the swap landed, or any request submitted after it,
+    # was admitted after it (a streamed request's stamps are the
+    # poller's, later than the engine's)
+    before_swap = [r["weights_version"] for r in results
+                   if r["token_times_s"][0] < swap["sent"]]
+    after_swap = [r["weights_version"] for i, r in enumerate(results)
+                  if r["submitted_s"] > swap["landed"]
+                  or (i % 2 == 0 and r["token_times_s"][0] > swap["landed"])]
+    adopted_equal = [a["tokens"] == r["tokens"]
+                     for a, r in zip(adopted, results[:4])]
+    rec = {"phase": "serving_1b_server", "card": card(),
+           "requests": len(prompts), "handler_threads": 16,
+           "generate_requests": len(prompts[::2]),
+           "streamed_requests": len(prompts[1::2]), "slots": 8,
+           "chunk_tokens": chunk, "new_tokens": new_tokens, "seconds": dt,
+           "server_tokens_per_sec": len(prompts) * new_tokens / dt,
+           "ttft_s": percentiles(ttft), "tbt_ms": percentiles(tbt, 1e3),
+           "ttft_s_generate": percentiles(ttft[::2]),
+           "ttft_s_streamed": percentiles(ttft[1::2]),
+           "pumps": pumps, "poll_tick_s": POLL_TICK_S, "poll_ticks": ticks,
+           "poll_rpcs": poll_rpcs, "streams_per_tick_mean": float(
+               np.mean(per_tick)), "streams_per_tick_max": max(per_tick),
+           "flash_launches": counts,
+           "weights_versions": {v: versions.count(v) for v in set(versions)},
+           "versions_before_swap": before_swap,
+           "versions_after_swap": after_swap,
+           "equal_to_phase_serving": sum(
+               r["tokens"] == list(w) for r, w in zip(results, greedy_tokens)),
+           "prefill_worker_seconds_4": prefill_s,
+           "adopted_bit_equal_inline": adopted_equal,
+           "stamps_ok": stamps_ok, "drained": drained,
+           "pump_alive_after_shutdown": pump_alive,
+           "pump_errors": errors.records}
+    emit(rec)
+    if errors.records:
+        raise AssertionError(f"the decode pump logged errors: {errors.records}")
+    if any(counts.values()):
+        raise AssertionError(f"the server path launched flash kernels: {counts}")
+    if not stamps_ok:
+        raise AssertionError("a stream's stamps are not one a token, "
+                             "in order, after its submit")
+    # the poller is the server's only poll caller: one RPC a tick
+    if ticks == 0 or poll_rpcs != ticks or max(per_tick) < 2:
+        raise AssertionError(f"{poll_rpcs} poll RPCs for {ticks} ticks of up "
+                             f"to {max(per_tick, default=0)} streams")
+    if not (before_swap and after_swap and set(before_swap) == {0}
+            and set(after_swap) == {1}):
+        raise AssertionError(f"weight versions around the swap: before "
+                             f"{before_swap}, after {after_swap}")
+    if not all(adopted_equal):
+        raise AssertionError(f"adopted streams differ from inline: "
+                             f"{adopted_equal}")
+    if not (drained and not pump_alive):
+        raise AssertionError(f"shutdown: drained {drained}, pump alive "
+                             f"{pump_alive}")
+    params, cfg = srv.engine.params, srv.cfg
+    for p, r, want in zip(prompts, results, greedy_tokens):
+        assert_tokens_agree(r["tokens"], want,
+                            stream_scores(params, cfg, p, r["tokens"]))
+    return counts
+
+
 def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens):
     """phase_exactness_f32's model (1B width, 2 layers, f32, TF32 off)
     through the other engine paths, each under the near-tie rule
@@ -1501,6 +1773,7 @@ def main() -> None:
         by_path["serving_1b_prefix"] = phase_serving_prefix(cfg, params)
         by_path["serving_1b_disaggregated"] = phase_serving_disaggregated(
             cfg, params, sampled_tokens)
+        by_path["serving_1b_server"] = phase_serving_server(greedy_tokens)
         del params
         torch.cuda.empty_cache()
         phase_exactness_f32()

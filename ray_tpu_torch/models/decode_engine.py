@@ -31,10 +31,12 @@ reports logprob 0.0 for chunk tokens, and after the first sampled submit
 every token carries its logprob. The engine runs without autograd:
 weights a trainer publishes (which require grad) build no graph here.
 
-Left for the serving wrappers (ROADMAP Queue 1 item 6): the Prometheus
-gauges (and the engine ``name`` that tags them), the flight-recorder
-span of the speculative pump, the ``serve.spec_verify`` chaos site, the
-live spec config knobs and the emulated dispatch delay.
+Every stream carries its submit stamp and one stamp per token
+(``time.perf_counter()``, taken when the tokens reached the host), from
+which the serving wrappers report time to first token and time between
+tokens. The runtime calls of the JAX engine (live spec config, the
+``serve.spec_verify`` chaos site, the speculative pump's span, the
+metric families) go through the injected ``serve.hooks.Hooks``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama, mlp
 from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.serve import hooks as _hooks
 from ray_tpu_torch.utils import prng
 
 
@@ -517,6 +520,8 @@ class _Stream:
     max_new: int
     tokens: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)  # parallel to tokens
+    token_times: list = field(default_factory=list)  # perf_counter stamps
+    submitted: float = 0.0  # perf_counter stamp of the submit
     done: bool = False
     taken: int = 0  # tokens already handed out via take_tokens()
     prefilled: dict | None = None  # external KV payload (k/v/first_token)
@@ -538,21 +543,29 @@ class RaggedDecoder:
     (prefill) and advances one chunk; finished streams free their slots
     at once. Thread-unsafe by design: ONE pump owner drives it.
     ``params`` (and ``spec_draft_head``) must live on ``device`` (default
-    ``cuda``)."""
+    ``cuda``). ``name`` tags the engine's metrics, spans and chaos sites;
+    ``chunk_delay_s`` sleeps that long in every pump before its fetch (a
+    stand-in for device latency when the serving tier is benchmarked on
+    a host without a card); ``hooks`` carries the runtime calls."""
 
     MAX_SPEC_DEPTH = 8
     RATE_WINDOW_S = 5.0
+    METRICS_PERIOD_S = 1.0
 
     def __init__(self, params, cfg: LlamaConfig, *, slots: int = 8,
                  max_len: int = 512, chunk_tokens: int = 32,
                  prompt_buckets: tuple = (32, 64, 128, 256),
-                 prefix_cache=None, weights_version: int = 0,
+                 prefix_cache=None, name: str = "default",
+                 chunk_delay_s: float = 0.0, weights_version: int = 0,
                  spec_depth: int = 0,
                  spec_draft_layers: int = 0, spec_draft_head=None,
-                 device=None):
+                 device=None, hooks: _hooks.Hooks | None = None):
         self.device = resolve_device(device)
         self._check_params(params)
         self.params = params
+        self.name = name
+        self.chunk_delay_s = chunk_delay_s
+        self.hooks = hooks or _hooks.INERT
         self.cfg = cfg
         self.slots = slots
         self.max_len = max_len
@@ -592,7 +605,9 @@ class RaggedDecoder:
         # exactly m draft tokens, 0..depth
         self._spec_hist: collections.Counter = collections.Counter()
         self._total_tokens = 0
+        # (stamp, n_tokens) per pump for the tokens/s signal
         self._rate_window: collections.deque = collections.deque()
+        self._metrics_t = 0.0
 
     def _check_params(self, params) -> None:
         got = params["embed"].device
@@ -618,6 +633,7 @@ class RaggedDecoder:
         if float(temperature) > 0.0:
             self._sampling_seen = True
         s = _Stream(self._next_sid, prompt, min(max_new, room),
+                    submitted=time.perf_counter(),
                     prefilled=prefilled, temperature=float(temperature),
                     top_p=float(top_p), seed=int(seed) & 0xFFFFFFFF,
                     tenant=str(tenant))
@@ -723,6 +739,7 @@ class RaggedDecoder:
         while free and self.queue:
             grabbed.append((free.pop(), self.queue.popleft()))
         cold: list[tuple[int, _Stream]] = []
+        t_now = time.perf_counter()
         for slot, s in grabbed:
             s.version = self.weights_version
             self._set_lane(slot, s)
@@ -735,6 +752,7 @@ class RaggedDecoder:
                     self.cache, self.cur_tok, self.cfg)
                 s.logprobs.append(p["first_logprob"])
                 s.tokens.append(p["first_token"])
+                s.token_times.append(t_now)
                 s.prefilled = None  # free the host slab
                 self.slot_stream[slot] = s
             elif self.prefix_cache is not None and self._admit_warm(slot, s):
@@ -825,31 +843,43 @@ class RaggedDecoder:
                 torch.stack([t for _, t, _ in firsts]).to(torch.int32),
                 torch.stack([lp for _, _, lp in firsts]).to(torch.float32))
 
-    def _deliver_firsts(self, streams, toks, lps) -> int:
+    def _deliver_firsts(self, streams, toks, lps, t_now: float) -> int:
         for s, t0, lp0 in zip(streams, toks, lps):
             # logprob first, token second: take_tokens slices both lists
             # by len(tokens), so the parallel list must never lag it
             s.logprobs.append(float(lp0))
             s.tokens.append(int(t0))
+            s.token_times.append(t_now)
         return len(streams)
 
-    @staticmethod
-    def _fetch_pump(parts: list, lps) -> list:
+    def _fetch_pump(self, parts: list, lps) -> list:
         """The pump's ONE device->host transfer: `parts` and, unless the
         engine is greedy-only (`lps` None: its logprobs are the host's
-        0.0 placeholders), the chunk's logprobs, last."""
+        0.0 placeholders), the chunk's logprobs, last. The emulated
+        dispatch delay, if any, is slept first."""
+        if self.chunk_delay_s:
+            time.sleep(self.chunk_delay_s)
         if lps is None:
             return _fetch(parts) + [None]
         return _fetch(parts + [lps])
 
-    def _deliver(self, slot: int, s: _Stream, toks, lps, pos) -> int:
-        """Append a slot's new tokens (up to its max_new) and free the slot
-        when the stream is done. Returns the tokens delivered. `lps` None
-        (a greedy-only engine) appends 0.0 logprobs."""
+    def _deliver(self, slot: int, s: _Stream, toks, lps, pos,
+                 t_now: float) -> int:
+        """Append a slot's new tokens (up to its max_new), stamped
+        `t_now`, and free the slot when the stream is done. Returns the
+        tokens delivered. `lps` None (a greedy-only engine) appends 0.0
+        logprobs."""
         take = max(0, min(len(toks), s.max_new - len(s.tokens)))
         s.logprobs.extend([0.0] * take if lps is None
                           else (float(x) for x in lps[:take]))
         s.tokens.extend(int(x) for x in toks[:take])
+        s.token_times.extend([t_now] * take)
+        # per-token TBT: the stream's gap since its last stamp amortised
+        # over the chunk's tokens (they reach the client together)
+        if take > 0 and len(s.token_times) > take:
+            prev = s.token_times[-take - 1]
+            if t_now > prev:
+                self._tbt_obs((t_now - prev) / take, s.tenant)
         if len(s.tokens) >= s.max_new or int(pos) >= self.max_len - 1:
             s.done = True
             self.finished[s.sid] = s
@@ -869,6 +899,11 @@ class RaggedDecoder:
         if not active_mask.any():
             return 0
         depth = self._spec_depth_now()
+        # chaos site: "drop" runs this chunk on the plain path, which
+        # emits the same tokens (fewer per pump)
+        if depth > 0 and self.hooks.fire("serve.spec_verify",
+                                         engine=self.name) == "drop":
+            depth = 0
         if depth > 0:
             return self._pump_spec(active_mask, depth)
         toks, lps, self.cache, self.cur_tok = decode_chunk_sampled(
@@ -879,25 +914,36 @@ class RaggedDecoder:
         toks_np, pos_np, ftoks_np, flps_np, lps_np = self._fetch_pump(
             [toks, self.cache["pos"], ftoks, flps], lps)
         t_now = time.perf_counter()
-        delivered = self._deliver_firsts(streams, ftoks_np, flps_np)
+        delivered = self._deliver_firsts(streams, ftoks_np, flps_np, t_now)
         for slot, s in enumerate(self.slot_stream):
             if s is not None:
                 delivered += self._deliver(
                     slot, s, toks_np[slot],
-                    None if lps_np is None else lps_np[slot], pos_np[slot])
+                    None if lps_np is None else lps_np[slot], pos_np[slot],
+                    t_now)
         self._account(t_now, delivered)
         return int(active_mask.sum())
 
     def _spec_depth_now(self) -> int:
-        """Draft depth for this pump: the constructor's, clamped to
-        MAX_SPEC_DEPTH (the live config knobs are the serving wrappers')."""
-        return max(0, min(self.spec_depth, self.MAX_SPEC_DEPTH))
+        """Draft depth for this pump, read from the live config at every
+        pump: ``serve_spec_enabled`` gates speculation and
+        ``serve_spec_depth`` > 0 overrides the constructor's depth.
+        Clamped to MAX_SPEC_DEPTH; 0 when speculation is off."""
+        try:
+            if not self.hooks.config_get("serve_spec_enabled"):
+                return 0
+            override = int(self.hooks.config_get("serve_spec_depth"))
+        except Exception:  # noqa: BLE001 — config never breaks decode
+            override = 0
+        depth = override if override > 0 else self.spec_depth
+        return max(0, min(depth, self.MAX_SPEC_DEPTH))
 
     def _pump_spec(self, active_mask, depth: int) -> int:
         """Speculative pump: `chunk` draft/verify rounds, emitting
         1..depth+1 tokens per slot per round. Same single device->host
         transfer as the plain pump; per-slot sequences are assembled on
         the host from the per-round accept counts."""
+        t0 = time.perf_counter()
         toks, lps, counts, self.cache, self.cur_tok = decode_chunk_spec(
             self.params, self.spec_draft_head, self.cache, self.cur_tok,
             _to_device(active_mask, self.device), *self._lanes(), self.cfg,
@@ -907,7 +953,7 @@ class RaggedDecoder:
             self._fetch_pump([toks, counts, self.cache["pos"], ftoks, flps],
                              lps))
         t_now = time.perf_counter()
-        delivered = self._deliver_firsts(streams, ftoks_np, flps_np)
+        delivered = self._deliver_firsts(streams, ftoks_np, flps_np, t_now)
         proposed = accepted = 0
         for slot, s in enumerate(self.slot_stream):
             if s is None:
@@ -924,10 +970,29 @@ class RaggedDecoder:
                 proposed += depth
                 accepted += m - 1
                 self._spec_hist[m - 1] += 1
-            delivered += self._deliver(slot, s, seq_t, seq_lp, pos_np[slot])
+            delivered += self._deliver(slot, s, seq_t, seq_lp, pos_np[slot],
+                                       t_now)
         self._spec_proposed += proposed
         self._spec_accepted += accepted
         self._spec_pumps += 1
+        if proposed:
+            try:
+                m = self.hooks.metrics()
+                tags = {"engine": self.name}
+                m["spec_proposed"].inc(proposed, tags)
+                m["spec_accepted"].inc(accepted, tags)
+            except Exception:  # noqa: BLE001 — telemetry never breaks decode
+                pass
+        try:
+            off = time.monotonic() - time.perf_counter()
+            self.hooks.record(
+                "serve", "serve.spec_verify", t0 + off, t_now + off,
+                attrs={"engine": self.name, "depth": depth,
+                       "rounds": self.chunk, "proposed": proposed,
+                       "accepted": accepted},
+                flush=False)  # per-pump hot path: ring-only
+        except Exception:  # noqa: BLE001
+            pass
         self._account(t_now, delivered)
         return int(active_mask.sum())
 
@@ -942,12 +1007,22 @@ class RaggedDecoder:
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
 
+    def _tbt_obs(self, v: float, tenant: str = "-") -> None:
+        try:
+            self.hooks.metrics()["tbt"].observe(
+                v, {"engine": self.name, "tenant": tenant})
+        except Exception:  # noqa: BLE001 — telemetry never breaks decode
+            pass
+
     def _account(self, t_now: float, delivered: int) -> None:
         self._total_tokens += delivered
         w = self._rate_window
         w.append((t_now, delivered))
         while w and t_now - w[0][0] > self.RATE_WINDOW_S:
             w.popleft()
+        if t_now - self._metrics_t >= self.METRICS_PERIOD_S:
+            self._metrics_t = t_now
+            self._export_metrics(self.stats())
 
     def tokens_per_sec(self) -> float:
         w = self._rate_window
@@ -990,6 +1065,19 @@ class RaggedDecoder:
                                 for k, v in sorted(self._spec_hist.items())},
             }
         return out
+
+    def _export_metrics(self, st: dict) -> None:
+        try:
+            m = self.hooks.metrics()
+            tags = {"engine": self.name}
+            m["active"].set(st["active"], tags)
+            m["queued"].set(st["queued"], tags)
+            m["tps"].set(st["tokens_per_sec"], tags)
+            pc = st.get("prefix_cache")
+            if pc is not None:
+                m["hit_rate"].set(pc["hit_rate"], tags)
+        except Exception:  # noqa: BLE001 — telemetry never breaks decode
+            pass
 
     @torch.no_grad()
     def drain(self, deadline_s: float = 600.0) -> None:

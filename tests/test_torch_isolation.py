@@ -9,6 +9,7 @@ import torch
 import ray_tpu_torch
 from ray_tpu_torch import train
 from ray_tpu_torch.models import decode_engine, llama
+from ray_tpu_torch.serve import llm, llm_pool
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
@@ -34,6 +35,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"chip_smoke.py", "ray_tpu_torch/ops/flash_attention.py",
             "ray_tpu_torch/models/decode_engine.py",
+            "ray_tpu_torch/serve/hooks.py", "ray_tpu_torch/serve/llm.py",
+            "ray_tpu_torch/serve/llm_pool.py",
             "ray_tpu_torch/train/optim.py",
             "ray_tpu_torch/train/step.py"} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
@@ -61,6 +64,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     prompt_buckets=(8,))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.from_jax_params({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llm.build_model("tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llm.LLMServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llm_pool.PrefillWorker()
 
 
 def test_train_entry_points_raise_without_a_card(monkeypatch):
