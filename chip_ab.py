@@ -1,11 +1,13 @@
 """Times the port's flash-attention forward and backward kernels of one
 checkout at the main-path shapes, on one NVIDIA GPU; or, with `engine`,
 its greedy serving engine at Llama-1B; or, with `server`, where the
-serving wrappers' time goes at Llama-1B.
+serving wrappers' time goes at Llama-1B; or, with `pool`, what the serving
+pool's layer costs and what a second replica on one card buys.
 
     python3 chip_ab.py <checkout>
     python3 chip_ab.py <checkout> engine
     python3 chip_ab.py <checkout> server
+    python3 chip_ab.py <checkout> pool
 
 To compare two versions on one card, unpack both (``git archive``) into
 directories that ``.gitignore`` lists and time them in turns in one
@@ -39,6 +41,17 @@ engine pumped on one other thread while the main thread waits, C an
 D `chip_smoke.py`'s `serving_1b_server` traffic (half streamed through a
 poller). A against B isolates the pump's thread; B against C the
 server's own work; C against D the streaming poller.
+
+`pool` serves the same 32 greedy requests four ways, in turns (A B C D D
+C B A), one line each with tokens/s, time to first token (the first
+token's stamp minus the client's submit stamp) and time between tokens:
+A one `LLMServer`, B an `LLMPool` of 1 replica, C an `LLMPool` of 2
+replicas (members in this process), each by `generate()` from 16 handler
+threads after an untimed first request a replica; D two bare engines,
+16 requests each submitted at once, each pumped on a thread of its own.
+A against B is the pool layer's cost; B against C what a second replica
+buys when both pumps share the card and the interpreter lock; C against
+D how much of that is the two pumps alone.
 """
 
 import json
@@ -228,6 +241,117 @@ def server(smoke) -> None:
                             gaps[gaps > 0] / chunk, 50))})
 
 
+def pool(smoke) -> None:
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.serve import llm as serve_llm
+    from ray_tpu_torch.serve import llm_pool
+
+    warm, prompts = smoke.serving_requests()
+    new_tokens, chunk = 128, 32
+    kw = dict(slots=8, max_len=288, chunk_tokens=chunk, prompt_buckets=(128,),
+              seed=smoke.SEED, device="cuda")
+
+    def run_all(fns):
+        errors = []
+
+        def guarded(fn):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=guarded, args=(fn,)) for fn in fns]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+            if th.is_alive():
+                raise AssertionError("a handler thread did not end")
+        if errors:
+            raise errors[0]
+
+    def traffic(target, replicas):
+        # one first prefill + chunk a replica, untimed
+        run_all([lambda: target.generate(warm.tolist(), 32)] * replicas)
+        results = [None] * len(prompts)
+        sem = threading.Semaphore(16)
+
+        def one(i):
+            with sem:
+                t = time.perf_counter()
+                results[i] = (t, target.generate(prompts[i].tolist(),
+                                                 new_tokens))
+
+        t0 = time.perf_counter()
+        run_all([lambda i=i: one(i) for i in range(len(prompts))])
+        dt = time.perf_counter() - t0
+        if any(len(r["tokens"]) != new_tokens for _, r in results):
+            raise AssertionError("a request ended short")
+        return dt, results
+
+    def server():
+        srv = serve_llm.LLMServer("1b", **kw)
+        try:
+            return traffic(srv, 1)
+        finally:
+            if not srv.shutdown(30):
+                raise AssertionError("the server did not drain")
+
+    def pool_of(n):
+        def run():
+            p = llm_pool.LLMPool("1b", min_replicas=n, max_replicas=n,
+                                 autoscale=False, **kw)
+            try:
+                return traffic(p, n)
+            finally:
+                p.shutdown()
+        return run
+
+    def engines_on_two_threads():
+        # no server and no pool: two engines, each pumped on a thread of
+        # its own, 16 requests each, submitted up front
+        params, cfg = serve_llm.build_model("1b", max_len=288, seed=smoke.SEED,
+                                            device="cuda")
+        engs = [smoke.serving_engine(cfg, params) for _ in range(2)]
+        for eng in engs:
+            smoke.serve(eng, [warm], 32, [{}])  # untimed
+        out = [None, None]
+
+        def drain(j):
+            with torch.inference_mode():  # thread-local, as in the pump
+                t = time.perf_counter()
+                streams, _ = smoke.serve(engs[j], prompts[j::2], new_tokens,
+                                         [{}] * 16)
+                out[j] = [(t, {"tokens": st.tokens,
+                               "token_times_s": st.token_times})
+                          for st in streams]
+
+        t0 = time.perf_counter()
+        run_all([lambda j=j: drain(j) for j in range(2)])
+        return time.perf_counter() - t0, out[0] + out[1]
+
+    modes = {"A_server": server, "B_pool_1_replica": pool_of(1),
+             "C_pool_2_replicas": pool_of(2),
+             "D_two_engines_two_threads": engines_on_two_threads}
+    order = list(modes) + list(modes)[::-1]
+    with torch.inference_mode():
+        for turn, name in enumerate(order):
+            dt, results = modes[name]()
+            ttft = [r["token_times_s"][0] - t for t, r in results]
+            gaps = np.concatenate([np.diff(r["token_times_s"])
+                                   for _, r in results])
+            smoke.emit({"phase": "pool_ab", "turn": turn, "mode": name,
+                        "card": smoke.card(), "seconds": dt,
+                        "tokens_per_sec": len(prompts) * new_tokens / dt,
+                        "ttft_s": smoke.percentiles(ttft),
+                        "tbt_ms": smoke.percentiles(gaps[gaps > 0] / chunk,
+                                                    1e3)})
+
+
 def main() -> None:
     tree = os.path.abspath(sys.argv[1])
     os.chdir(tree)
@@ -240,6 +364,9 @@ def main() -> None:
     smoke.phase_device()
     if sys.argv[2:] == ["server"]:
         server(smoke)
+        return
+    if sys.argv[2:] == ["pool"]:
+        pool(smoke)
         return
     libs = [p[:-3] for p in os.listdir("ray_tpu_torch/csrc") if p.endswith(".cu")]
     smoke._kernels.build(sorted(libs))

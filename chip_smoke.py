@@ -14,7 +14,11 @@ the prefix cache and disaggregated prefill, then the serving wrappers
 (LLMServer's pump thread answering the same 32 requests from 16 handler
 threads, by generate() and by streaming, through a live weight swap, and
 a PrefillWorker's KV handed to it: tokens/s, time to first token and time
-between tokens from the per-token stamps), with an f32 2-layer copy
+between tokens from the per-token stamps), then the serving pool
+(LLMPool over two such replicas: the same traffic, a replica killed under
+greedy and sampled streams, a weight publish with disaggregated prefill,
+and a burst that autoscales it from one replica to two and back), with
+an f32 2-layer copy
 holding each engine path to the one it must reproduce. Then the
 training path: Llama-350m at B=8 x T=2048 and Llama-1B at B=2 x T=2048,
 both at full width and depth (bench.py's headline configurations), a
@@ -35,6 +39,7 @@ device.
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import re
@@ -51,6 +56,7 @@ from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve import llm_pool
+from ray_tpu_torch.serve import runtime as serve_runtime
 from ray_tpu_torch.utils import prng
 from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
@@ -1132,6 +1138,348 @@ def phase_serving_server(greedy_tokens):
     return counts
 
 
+class PoolRuntime(serve_runtime.InProcessRuntime):
+    """The pool's default in-process runtime, keeping each member's
+    spawn-to-healthy seconds (construction: weights to the card, cache)
+    and its pump thread, to check that every pump ends."""
+
+    def __init__(self):
+        self.spawns, self.pumps = [], []
+
+    def spawn(self, cls, kwargs, *, name="", max_concurrency=1):
+        t0 = time.perf_counter()
+        handle = super().spawn(cls, kwargs, name=name,
+                               max_concurrency=max_concurrency)
+        self.spawns.append((name, time.perf_counter() - t0))
+        if hasattr(handle.obj, "_pump_thread"):
+            self.pumps.append(handle.obj._pump_thread)
+        return handle
+
+
+def serve_through_pool(pool, requests, new_tokens, on_tokens=None,
+                       concurrency=16):
+    """`requests` ((prompt, lane) pairs) through the pool's entry points
+    from `concurrency` handler threads: half by generate(), half by
+    submit_stream() and poll_stream() every POLL_TICK_S (requests 0, 1, 4,
+    5, ... and 2, 3, 6, 7, ...: the pool admits arrivals to its replicas
+    in turn, so each replica gets both kinds), each streamed
+    token stamped (perf_counter) as it reaches its client. `on_tokens(rid,
+    n)` runs on a streaming client's thread after each poll, with the n
+    tokens that client holds. Returns (results, seconds); raises a client's
+    error, a truncated stream or a short one."""
+    results = [None] * len(requests)
+    errors = []
+    sem = threading.Semaphore(concurrency)
+
+    def one(i):
+        prompt, lane = requests[i]
+        try:
+            with sem:
+                t_sub = time.perf_counter()
+                if i % 4 < 2:
+                    out = pool.generate(prompt.tolist(), new_tokens, **lane)
+                    results[i] = {**out, "client_submitted_s": t_sub}
+                    return
+                rid = pool.submit_stream({"prompt_ids": prompt.tolist(),
+                                          "max_tokens": new_tokens, **lane})["rid"]
+                r = {"rid": rid, "tokens": [], "logprobs": [],
+                     "token_times_s": [], "client_submitted_s": t_sub,
+                     "versions": set()}
+                deadline = time.monotonic() + 300
+                while True:
+                    got = pool.poll_stream(rid)
+                    t = time.perf_counter()
+                    r["tokens"] += got["tokens"]
+                    r["logprobs"] += got["logprobs"]
+                    r["token_times_s"] += [t] * len(got["tokens"])
+                    r["versions"].add(got.get("weights_version"))
+                    if on_tokens is not None:
+                        on_tokens(rid, len(r["tokens"]))
+                    if got["done"]:
+                        break
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"stream {rid} did not finish")
+                    time.sleep(POLL_TICK_S)
+                if got.get("truncated"):
+                    raise AssertionError(f"stream {rid} was truncated")
+                (r["weights_version"],) = r.pop("versions")
+                results[i] = r
+            if len(results[i]["tokens"]) != new_tokens:
+                raise AssertionError(f"request {i} ended with "
+                                     f"{len(results[i]['tokens'])} tokens")
+        except Exception as e:  # noqa: BLE001 — raised on the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a pool client thread did not end")
+    dt = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return results, dt
+
+
+def client_ttft(results):
+    """First token's stamp minus the client's submit stamp (perf_counter:
+    the replica's stamps for generate(), the client's for streams)."""
+    return [r["token_times_s"][0] - r["client_submitted_s"] for r in results]
+
+
+def tbt_ms(results, chunk):
+    gaps = np.concatenate([np.diff(r["token_times_s"]) for r in results])
+    return percentiles(gaps[gaps > 0] / chunk, 1e3)
+
+
+def count_admissions(pool) -> collections.Counter:
+    """Admissions (first ones and failover re-admissions) by replica name,
+    counted from here on."""
+    counts = collections.Counter()
+    acquire = pool._acquire
+
+    def counted(*args, **kwargs):
+        rep = acquire(*args, **kwargs)
+        counts[rep.name] += 1
+        return rep
+
+    pool._acquire = counted
+    return counts
+
+
+def phase_serving_pool(cfg, params, greedy_tokens, sampled_tokens):
+    """The serving pool at Llama-1B: LLMPool (serve/llm_pool.py) over
+    LLMServer replicas of phase_serving_server's shape (8 slots of 288
+    rows, chunks of 32, weights from the same seed), members in this
+    process (the in-process runtime). (a) 2 replicas serve phase_serving's
+    32 greedy requests from 16 handler threads, half generate(), half
+    streamed with poll_stream() every POLL_TICK_S; (b) on that pool, 8
+    greedy and 8 sampled requests (phase_serving_sampled's lanes), and the
+    replica of the first stream to hold 6 tokens is killed; (c) a fresh
+    pool of 2 replicas and a PrefillWorker takes publish_weights of the
+    same weights as a host tree and wait_version(1), then serves 8
+    requests, all routed to the worker (prefill_threshold=128); (d) an
+    autoscaling pool (1 to 2 replicas, 4 requests a replica) takes a burst
+    of 16 requests of 32 new tokens. Raises unless (a) all 32 agree with
+    phase_serving's tokens (near-tie rule); (b) no client sees an error,
+    every request agrees with its uninterrupted run (phase_serving's,
+    phase_serving_sampled's) and the kill freed the replica's device
+    memory; (c) wait_version is true, the 8 carry version 1 and equal
+    (a)'s tokens bit for bit; (d) the pool reaches 2 replicas during the
+    burst and drains back to 1; and, in every part, no flash launch, no
+    pump error, and every pump thread ended by shutdown() or the kill.
+    Returns the path's flash launches (none)."""
+    warm, prompts = serving_requests()
+    new_tokens, chunk = 128, 32
+    server_kw = dict(slots=8, max_len=288, chunk_tokens=chunk,
+                     prompt_buckets=(128,), seed=SEED, device="cuda")
+    greedy_reqs = [(p, {}) for p in prompts]
+    errors = PumpErrors()
+    port_log = logging.getLogger("ray_tpu_torch")
+    port_log.addHandler(errors)
+    rt = PoolRuntime()
+    rec = {"phase": "serving_1b_pool", "card": card()}
+    try:
+        fa.reset_launch_count()
+        # (a) traffic over 2 replicas
+        pool = llm_pool.LLMPool("1b", min_replicas=2, max_replicas=2,
+                                autoscale=False, runtime=rt, **server_kw)
+        threads = [threading.Thread(target=pool.generate,
+                                    args=(warm.tolist(), 32))
+                   for _ in range(2)]  # one first prefill + chunk a replica
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        admitted = count_admissions(pool)
+        t_mono = time.monotonic()
+        results, dt = serve_through_pool(pool, greedy_reqs, new_tokens)
+        pool_ttft = [t for stamp, t, _ in pool._ttfts if stamp >= t_mono]
+        ttft = client_ttft(results)
+        rec["a_traffic"] = {
+            "replicas": 2, "requests": len(prompts), "handler_threads": 16,
+            "seconds": dt,
+            "pool_tokens_per_sec": len(prompts) * new_tokens / dt,
+            "engine_tokens_per_sec": RECORDS["serving_1b"][
+                "engine_tokens_per_sec"],
+            "server_tokens_per_sec": RECORDS.get("serving_1b_server", {}).get(
+                "server_tokens_per_sec"),
+            # the pool's own records (queue wait + replica stamps) of the
+            # generate() calls still in its 30 s window
+            "ttft_s_generate_record_ttft": percentiles(pool_ttft),
+            "ttft_records": len(pool_ttft),
+            "ttft_s_streamed_client": percentiles(
+                [t for i, t in enumerate(ttft) if i % 4 >= 2]),
+            "ttft_s_all_client": percentiles(ttft),
+            "tbt_ms": tbt_ms(results, chunk),
+            "admissions_per_replica": dict(admitted),
+            "equal_to_phase_serving": sum(
+                r["tokens"] == list(w) for r, w in zip(results, greedy_tokens)),
+            "stats": pool.stats()}
+        for p, r, want in zip(prompts, results, greedy_tokens):
+            assert_tokens_agree(r["tokens"], want,
+                                stream_scores(params, cfg, p, r["tokens"]))
+        inline = [r["tokens"] for r in results]
+
+        # (b) failover: kill the replica of the first stream at 6 tokens
+        lanes = [{}] * 8 + [dict(SAMPLED, seed=1000 + i) for i in range(8)]
+        fail_prompts = prompts[:8] * 2
+        wants = list(greedy_tokens[:8]) + list(sampled_tokens[:8])
+        kill = {}
+        kill_lock = threading.Lock()
+        admitted = count_admissions(pool)
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+
+        def on_tokens(rid, n):
+            with kill_lock:
+                victim = (pool._streams.get(rid) or {}).get("rep")
+                if n < 6 or kill or victim is None:
+                    return
+                with pool._lock:
+                    kill["streams"] = [orid for orid, orec in
+                                       pool._streams.items()
+                                       if orec.get("rep") is victim]
+                kill.update(replica=victim.name, inflight=victim.inflight,
+                            t=time.perf_counter(),
+                            pump=victim.handle.obj._pump_thread)
+                rt.kill(victim.handle)
+
+        results_b, dt_b = serve_through_pool(
+            pool, list(zip(fail_prompts, lanes)), new_tokens, on_tokens)
+        kill["pump"].join(timeout=60)
+        torch.cuda.synchronize()
+        freed = mem_before - torch.cuda.memory_allocated()
+        replica_bytes = (sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params))
+                         + 2 * cfg.n_layers * 8 * 288 * cfg.n_kv_heads
+                         * cfg.head_dim * 2)
+        moved = [r for r in results_b
+                 if r.get("rid") in kill["streams"]
+                 or ("rid" not in r and r["submitted_s"] > kill["t"])]
+        rec["b_failover"] = {
+            "requests": len(results_b), "greedy": 8, "sampled": 8,
+            "seconds": dt_b, "killed": kill["replica"],
+            "victim_inflight": kill["inflight"],
+            "admissions_per_replica": dict(admitted),
+            "streams_reassigned": len(kill["streams"]),
+            "generates_resubmitted": sum("rid" not in r for r in moved),
+            "kill_to_first_fresh_token_s": sorted(
+                min(t for t in r["token_times_s"] if t > kill["t"]) - kill["t"]
+                for r in moved),
+            "replicas_left": len(pool._alive()),
+            "victim_pump_ended": not kill["pump"].is_alive(),
+            "device_bytes_freed_by_kill": freed,
+            "replica_device_bytes": replica_bytes,
+            "agreement": agreement(params, cfg, fail_prompts,
+                                   [r["tokens"] for r in results_b], wants,
+                                   lanes)}
+        for p, r, want, lane in zip(fail_prompts, results_b, wants, lanes):
+            assert_tokens_agree(r["tokens"], want, stream_scores(
+                params, cfg, p, r["tokens"], **lane))
+        if not (moved and kill["streams"] and len(pool._alive()) == 1
+                and not kill["pump"].is_alive()):
+            raise AssertionError(f"failover: {rec['b_failover']}")
+        if freed < 0.95 * replica_bytes:
+            raise AssertionError(f"the kill freed {freed} bytes of the "
+                                 f"replica's {replica_bytes}")
+        pool.shutdown()
+        del pool
+
+        # (c) publish to 2 replicas + 1 prefill worker, then disaggregate
+        pool = llm_pool.LLMPool("1b", min_replicas=2, max_replicas=2,
+                                autoscale=False, prefill_workers=1,
+                                prefill_threshold=128, runtime=rt, **server_kw)
+        host = tree_unflatten(params, [x.cpu() for x in tree_leaves(params)])
+        t0 = time.perf_counter()
+        version = pool.publish_weights(host)
+        publish_s = time.perf_counter() - t0
+        adopted = pool.wait_version(version, timeout=120)
+        adoption_s = time.perf_counter() - t0
+        del host
+        routed0 = pool._prefill_rr
+        results_c, dt_c = serve_through_pool(pool, greedy_reqs[:8], new_tokens)
+        routed = pool._prefill_rr - routed0
+        rec["c_publish"] = {
+            "version": version, "wait_version": adopted,
+            "publish_s": publish_s, "publish_to_adoption_s": adoption_s,
+            "requests": 8, "routed_to_prefill_worker": routed,
+            "seconds": dt_c,
+            "versions": [r["weights_version"] for r in results_c],
+            "bit_equal_to_inline": [r["tokens"] == t
+                                    for r, t in zip(results_c, inline)]}
+        pool.shutdown()
+        del pool
+        if not (adopted and version == 1 and routed == 8
+                and rec["c_publish"]["versions"] == [1] * 8
+                and all(rec["c_publish"]["bit_equal_to_inline"])):
+            raise AssertionError(f"publish: {rec['c_publish']}")
+
+        # (d) autoscale from 1 to 2 replicas under a burst, and back
+        pool = llm_pool.LLMPool("1b", min_replicas=1, max_replicas=2,
+                                target_queue_per_replica=4,
+                                max_inflight_per_replica=8, autoscale=True,
+                                runtime=rt, **server_kw)
+        pool.AUTOSCALE_PERIOD_S = 0.1
+        time.sleep(1.0)  # the loop's first sleep is the class period
+        n_spawned = len(rt.spawns)
+        admitted = count_admissions(pool)
+        seen = []  # (seconds from the burst's start, replicas in rotation)
+
+        def watch():
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                n = len(pool._replicas)
+                seen.append((time.perf_counter() - t0, n))
+                if n == 1 and any(m == 2 for _, m in seen):
+                    return
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch)
+        t0 = time.perf_counter()
+        watcher.start()
+        results_d, dt_d = serve_through_pool(pool, greedy_reqs[:16], 32)
+        watcher.join(timeout=150)
+        two = [t for t, n in seen if n == 2]
+        rec["d_autoscale"] = {
+            "requests": 16, "new_tokens": 32, "burst_s": dt_d,
+            "max_replicas": max(n for _, n in seen),
+            "two_replicas_at_s": two[0] if two else None,
+            "spawn_to_healthy_s": [s for _, s in rt.spawns[n_spawned:]],
+            "admissions_per_replica": dict(admitted),
+            "back_to_one_at_s": seen[-1][0] if two else None,
+            "replicas_after": len(pool._replicas)}
+        for p, r, want in zip(prompts, results_d, greedy_tokens):
+            assert_tokens_agree(r["tokens"], want[:32], stream_scores(
+                params, cfg, p, r["tokens"]))
+        pool.shutdown()
+        del pool
+        if not (two and two[0] < dt_d and len(rt.spawns) - n_spawned == 1
+                and rec["d_autoscale"]["replicas_after"] == 1):
+            raise AssertionError(f"autoscale: {rec['d_autoscale']}")
+        counts = fa.launch_counts()
+    finally:
+        port_log.removeHandler(errors)
+    for th in rt.pumps:
+        th.join(timeout=30)
+    rec.update(flash_launches=counts, pump_threads=len(rt.pumps),
+               pumps_alive=sum(th.is_alive() for th in rt.pumps),
+               pump_errors=errors.records)
+    emit(rec)
+    if errors.records:
+        raise AssertionError(f"the decode pump logged errors: {errors.records}")
+    if any(counts.values()):
+        raise AssertionError(f"the pool path launched flash kernels: {counts}")
+    if rec["pumps_alive"]:
+        raise AssertionError(f"{rec['pumps_alive']} pump threads outlived "
+                             f"their pools")
+    return counts
+
+
 def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens):
     """phase_exactness_f32's model (1B width, 2 layers, f32, TF32 off)
     through the other engine paths, each under the near-tie rule
@@ -1774,6 +2122,8 @@ def main() -> None:
         by_path["serving_1b_disaggregated"] = phase_serving_disaggregated(
             cfg, params, sampled_tokens)
         by_path["serving_1b_server"] = phase_serving_server(greedy_tokens)
+        by_path["serving_1b_pool"] = phase_serving_pool(
+            cfg, params, greedy_tokens, sampled_tokens)
         del params
         torch.cuda.empty_cache()
         phase_exactness_f32()

@@ -180,6 +180,7 @@ class LLMServer:
         self._poll_rpcs = 0
         self._stop = False
         self._draining = False
+        self._aborted = False
         self._pump_thread = threading.Thread(
             target=self._pump_loop, daemon=True, name="llm-decode-pump")
         self._pump_thread.start()
@@ -198,6 +199,10 @@ class LLMServer:
                 self._release_finished()
                 if not busy:
                     time.sleep(0.005)  # idle: don't spin
+        if self._aborted:
+            # the engine (weights, KV cache, prefix rows) goes with the
+            # pump: nothing of a killed replica stays on the device
+            self.engine = None
 
     def _pump_once(self) -> int:
         try:
@@ -254,6 +259,9 @@ class LLMServer:
         try:
             if not ev.wait(timeout=600):
                 raise TimeoutError(f"stream {sid} did not finish in 600s")
+            if self._aborted:
+                raise RuntimeError(f"replica aborted with stream {sid} "
+                                   f"in flight")
             s = self.engine.pop_finished(sid)
         finally:
             # the timeout path too: a leaked event entry is rescanned
@@ -484,6 +492,19 @@ class LLMServer:
         self._stop = True
         self._pump_thread.join(timeout=10.0)
         return drained and not self._pump_thread.is_alive()
+
+    def abort(self) -> None:
+        """Stop at once, as a killed replica does: no drain. Handlers
+        waiting on a stream raise, the pump thread ends after the pump
+        under way (it is never joined here, so a caller holding locks of
+        its own cannot deadlock on it), and the engine is released as
+        it ends."""
+        with self._lock:
+            self._draining = True
+            self._aborted = True
+            self._stop = True
+            for ev in self._done_events.values():
+                ev.set()
 
     def __del__(self):
         self._stop = True

@@ -37,6 +37,10 @@ def test_port_files_exist():
             "ray_tpu_torch/models/decode_engine.py",
             "ray_tpu_torch/serve/hooks.py", "ray_tpu_torch/serve/llm.py",
             "ray_tpu_torch/serve/llm_pool.py",
+            "ray_tpu_torch/serve/runtime.py",
+            "ray_tpu_torch/serve/overload.py",
+            "ray_tpu_torch/serve/multiplex.py",
+            "ray_tpu_torch/autoscaler/demand_scheduler.py",
             "ray_tpu_torch/train/optim.py",
             "ray_tpu_torch/train/step.py"} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
@@ -70,6 +74,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         llm.LLMServer()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llm_pool.PrefillWorker()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llm_pool.LLMPool()
 
 
 def test_train_entry_points_raise_without_a_card(monkeypatch):
