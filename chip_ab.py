@@ -2,12 +2,14 @@
 checkout at the main-path shapes, on one NVIDIA GPU; or, with `engine`,
 its greedy serving engine at Llama-1B; or, with `server`, where the
 serving wrappers' time goes at Llama-1B; or, with `pool`, what the serving
-pool's layer costs and what a second replica on one card buys.
+pool's layer costs and what a second replica on one card buys; or, with
+`moe`, the greedy engine on the 1B-MoE against the dense 1B.
 
     python3 chip_ab.py <checkout>
     python3 chip_ab.py <checkout> engine
     python3 chip_ab.py <checkout> server
     python3 chip_ab.py <checkout> pool
+    python3 chip_ab.py <checkout> moe
 
 To compare two versions on one card, unpack both (``git archive``) into
 directories that ``.gitignore`` lists and time them in turns in one
@@ -52,6 +54,13 @@ threads after an untimed first request a replica; D two bare engines,
 A against B is the pool layer's cost; B against C what a second replica
 buys when both pumps share the card and the interpreter lock; C against
 D how much of that is the two pumps alone.
+
+`moe` serves the same 32 greedy requests with the dense 1B (A) and the
+1B-MoE (B: 8 experts, top-2, capacity routing at factor 1.25; both from
+seed 0, both resident), in turns A B B A, one line each with tokens/s,
+pump times and the launches of one greedy decode step of the 8-slot
+batch (torch.profiler): the paired baseline for work on the MoE decode
+step.
 """
 
 import json
@@ -155,6 +164,35 @@ def engine(smoke) -> None:
         smoke.phase_serving(cfg, params)
         partial_waves(smoke, decode_engine, cfg, params)
         admission_widths(smoke, decode_engine, cfg, params)
+
+
+def moe(smoke) -> None:
+    """phase_serving's 32 greedy requests on the dense 1B (A) and on the
+    1B-MoE (B, chip_smoke.moe_1b_config), both in memory, in turns A B B
+    A: tokens/s, pump times and launches per greedy decode step each."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    models = {}
+    for tag, cfg in (("dense_1b", smoke.bench_1b_config()),
+                     ("moe_1b", smoke.moe_1b_config())):
+        g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+        models[tag] = (cfg, llama.init_params(cfg, g, device="cuda"))
+    warm, prompts = smoke.serving_requests()
+    lanes = [{}] * len(prompts)
+    with torch.inference_mode():
+        for tag in ("dense_1b", "moe_1b", "moe_1b", "dense_1b"):
+            cfg, params = models[tag]
+            eng = smoke.serving_engine(cfg, params)
+            smoke.serve(eng, [warm], 32, lanes[:1])  # untimed
+            pumps = []
+            _, dt = smoke.serve(eng, prompts, 128, lanes, pumps=pumps)
+            smoke.emit({"phase": "moe_ab", "model": tag,
+                        "engine_tokens_per_sec": len(prompts) * 128 / dt,
+                        **smoke.pump_times(pumps),
+                        "greedy_step_launches": smoke.decode_step_launches(
+                            cfg, params)["greedy_step"]})
 
 
 def server(smoke) -> None:
@@ -367,6 +405,9 @@ def main() -> None:
         return
     if sys.argv[2:] == ["pool"]:
         pool(smoke)
+        return
+    if sys.argv[2:] == ["moe"]:
+        moe(smoke)
         return
     libs = [p[:-3] for p in os.listdir("ray_tpu_torch/csrc") if p.endswith(".cu")]
     smoke._kernels.build(sorted(libs))

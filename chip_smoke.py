@@ -20,6 +20,12 @@ greedy and sampled streams, a weight publish with disaggregated prefill,
 and a burst that autoscales it from one replica to two and back), with
 an f32 2-layer copy
 holding each engine path to the one it must reproduce. Then the
+mixture-of-experts model at the 1B widths with 8 experts, top-2
+(capacity routing at factor 1.25): scoring, the engine greedy and
+sampled (a sampled run replayed bit for bit), one capacity-routed layer
+on the card against the CPU, the engine paths of an f32 2-layer copy
+with dense dispatch, and LLMServer("moe-tiny"); and an 8-layer training
+step of it. Then the
 training path: Llama-350m at B=8 x T=2048 and Llama-1B at B=2 x T=2048,
 both at full width and depth (bench.py's headline configurations), a
 2-layer 350m-width step at T=16384 that takes the dq + dkv backward
@@ -160,10 +166,14 @@ NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dq_sm90",
 
 
 RECORDS = {}  # the last line emitted by each phase
+T_IMPORT = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also records when it was
+    printed (at_s: seconds since this module was imported)."""
     if "phase" in obj:
+        obj["at_s"] = round(time.perf_counter() - T_IMPORT, 1)
         RECORDS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
@@ -469,6 +479,13 @@ def phase_serving(cfg, params):
     return fa.launch_counts(), [s.tokens for s in streams]
 
 
+def exactness_prompts():
+    """The f32 checks' 12 prompts of 40 to 128 tokens."""
+    rng = np.random.RandomState(SEED + 1)
+    return [rng.randint(1, 30000, int(n)).astype(np.int32)
+            for n in rng.randint(40, 129, 12)]
+
+
 def phase_exactness_f32():
     """Engine tokens equal greedy_generate's on a float32 copy at reduced
     depth (2 layers, full 1B width)."""
@@ -479,9 +496,7 @@ def phase_exactness_f32():
     eng = decode_engine.RaggedDecoder(
         params, cfg, slots=8, max_len=288, chunk_tokens=32,
         prompt_buckets=(64, 128), device="cuda")
-    rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(1, 30000, int(n)).astype(np.int32)
-               for n in rng.randint(40, 129, 12)]
+    prompts = exactness_prompts()
     new_tokens = 32
     sids = [eng.submit(p, new_tokens) for p in prompts]
     eng.drain()
@@ -1480,7 +1495,8 @@ def phase_serving_pool(cfg, params, greedy_tokens, sampled_tokens):
     return counts
 
 
-def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens):
+def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens,
+                               tag="exactness_f32_2layer"):
     """phase_exactness_f32's model (1B width, 2 layers, f32, TF32 off)
     through the other engine paths, each under the near-tie rule
     (NEAR_TIE_TOL) against the path it must reproduce: sampled streams
@@ -1504,7 +1520,7 @@ def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens):
                 a, b, stream_scores(params, cfg, p, a, **lane))
             if i is not None:
                 divs.append({"at": i, "margin": margin})
-        emit({"phase": "exactness_f32_2layer", "check": name, "card": card(),
+        emit({"phase": tag, "check": name, "card": card(),
               "streams": len(ps), "divergences": divs,
               "near_tie_tol": NEAR_TIE_TOL, **extra, "ok": True})
 
@@ -1573,13 +1589,365 @@ def exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens):
         gaps.append(float(np.abs(np.asarray(s.logprobs, np.float32) - ref).max()))
     counts = fa.launch_counts()
     ok = max(gaps) <= 1e-4 and counts["flash_fwd"] == 8 * cfg.n_layers
-    emit({"phase": "exactness_f32_2layer", "card": card(),
+    emit({"phase": tag, "card": card(),
           "check": "logprobs_vs_teacher_forced",
           "streams": 8, "max_gap": max(gaps), "tol": 1e-4, "launches": counts,
           "ok": ok})
     if not ok:
         raise AssertionError(f"f32 logprobs vs teacher-forced: {gaps}, "
                              f"launches {counts}")
+
+
+# -- the mixture-of-experts Llama: the 1B widths with 8 experts, top-2 --
+
+MOE_1B_PARAMS = 6_499_002_368  # JAX's num_params() of moe_1b_config()
+
+
+def moe_1b_config(**over):
+    """bench_1b_config with Mixtral 8x7B's routing (8 experts, top-2;
+    Jiang et al. 2024, arXiv:2401.04088) and the JAX package's capacity
+    defaults (capacity routing, factor 1.25)."""
+    return llama.LlamaConfig(**{**bench_1b_config().__dict__, "n_experts": 8,
+                                "top_k": 2, "moe_impl": "capacity",
+                                "capacity_factor": 1.25, **over})
+
+
+def moe_forward_flops(cfg, b, t):
+    """Multiply-add flops (2 a product) of the products one forward of
+    B x T tokens runs: the projections, the causal attention pairs, the
+    router, the capacity dispatch and combine (T x E*C per row each) and
+    the experts over their E*C buffer rows a row, the unembedding. Counts
+    what the MoE layer computes, not 6 x num_params (which counts every
+    expert for every token)."""
+    d, f, e, hd = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.head_dim
+    hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, b * t
+    c = llama.moe_capacity(cfg, t)
+    attn = 2 * n * d * (2 * hq * hd + 2 * hkv * hd) \
+        + 2 * 2 * hd * b * hq * t * (t + 1) // 2
+    moe = 2 * n * d * e + 2 * 2 * b * t * e * c * d + 3 * 2 * b * e * c * d * f
+    return cfg.n_layers * (attn + moe) + 2 * n * d * cfg.vocab_size
+
+
+def capacity_slots_recorded(fn):
+    """Runs fn() with every llama._capacity_slots call recorded: returns
+    (fn's result, [per call: (choices dropped, choices routed)])."""
+    seen = []
+    plain = llama._capacity_slots
+
+    def recording(cfg, gates, capacity):
+        out = plain(cfg, gates, capacity)
+        seen.append(out[2] >= capacity)
+        return out
+
+    llama._capacity_slots = recording
+    try:
+        result = fn()
+    finally:
+        llama._capacity_slots = plain
+    return result, [(int(x.sum()), x.numel()) for x in seen]
+
+
+def phase_init_1b_moe():
+    """The 1B-MoE model on the card: seeded init_params (drawn in f32 a
+    leaf at a time, then cast to bf16)."""
+    cfg = moe_1b_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 800)
+    params = llama.init_params(cfg, g, device="cuda")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = cfg.num_params()
+    ok = n == MOE_1B_PARAMS and sum(x.numel() for x in leaves) == n
+    emit({"phase": "init_1b_moe", "card": card(), "n_params": n,
+          "expected_n_params": MOE_1B_PARAMS, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+          "moe_impl": cfg.moe_impl, "capacity_factor": cfg.capacity_factor,
+          "param_bytes": sum(x.numel() * x.element_size() for x in leaves),
+          "allocated_bytes": torch.cuda.memory_allocated() - before,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated() - before,
+          "seconds": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise AssertionError(f"1B-MoE: {n} params, expected {MOE_1B_PARAMS}")
+    return cfg, params
+
+
+def phase_scoring_1b_moe(cfg, params, peaks):
+    """llama.forward of the 1B-MoE at B2 x T2048 (capacity 640 a row):
+    flash_fwd_sm90 once a layer, finite logits, a second forward equal
+    bit for bit; ms, tokens/s, the products' rate, and the expert choices
+    dropped in each layer (summed over the batch)."""
+    b, t = 2, 2048
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    toks = torch.randint(1, 30000, (b, t), generator=g, device="cuda")
+    fa.reset_launch_count()
+    logits, drops = capacity_slots_recorded(
+        lambda: llama.forward(params, toks, cfg))
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    launched_only("flash_fwd_sm90", counts)
+    again = llama.forward(params, toks, cfg)
+    replay_equal = bool(torch.equal(logits, again))
+    finite = bool(torch.isfinite(logits.float()).all())
+    ms = time_ms(lambda: llama.forward(params, toks, cfg), iters=5, warmup=1)
+    flops = moe_forward_flops(cfg, b, t)
+    capacity = llama.moe_capacity(cfg, t)
+    ok = (counts["flash_fwd_sm90"] == cfg.n_layers and finite and replay_equal
+          and len(drops) == cfg.n_layers
+          and all(n == b * t * cfg.top_k for _, n in drops))
+    emit({"phase": "scoring_1b_moe", "card": card(), "batch": b, "seq": t,
+          "capacity": capacity, "flash_launches": counts["flash_fwd_sm90"],
+          "logits_shape": list(logits.shape), "finite": finite,
+          "replay_bit_equal": replay_equal, "forward_ms": ms,
+          "tokens_per_sec": b * t / (ms / 1e3),
+          "dense_1b_forward_ms": RECORDS["scoring_forward_1b"]["forward_ms"],
+          "product_flops": flops,
+          "product_tflops_per_sec": flops / (ms / 1e3) / 1e12,
+          "product_share_of_peak": flops / (ms / 1e3) / peaks[0],
+          "dropped_choices_per_layer": [d for d, _ in drops],
+          "choices_per_layer": b * t * cfg.top_k, "ok": ok})
+    if not ok:
+        raise AssertionError(f"1B-MoE scoring: launches {counts}, finite "
+                             f"{finite}, replay {replay_equal}, drops {drops}")
+    del logits, again
+    return counts
+
+
+def phase_serving_1b_moe(cfg, params):
+    """phase_serving's 32 requests on the 1B-MoE (8 slots of 288 rows,
+    chunks of 32): greedy, the served sequences scored again (22
+    flash_fwd_sm90), then sampled (temperature 0.8, top_p 0.95, seed 1000
+    + i) twice, the two runs equal bit for bit (tokens and logprobs).
+    Tokens/s, pump times and launches per decode step beside the dense
+    1B's of this run."""
+    warm, prompts = serving_requests()
+    eng = serving_engine(cfg, params)
+    serve(eng, [warm], 32, [{}])  # untimed
+    fa.reset_launch_count()
+    pumps = []
+    streams, dt = serve(eng, prompts, 128, [{}] * len(prompts), pumps=pumps)
+    engine_counts = fa.launch_counts()
+    seqs = torch.from_numpy(np.stack([
+        np.concatenate([p, np.asarray(s.tokens, np.int32)])
+        for p, s in zip(prompts, streams)])).cuda()
+    logits = llama.forward(params, seqs, cfg)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    score_launches = counts["flash_fwd_sm90"] - engine_counts["flash_fwd_sm90"]
+    finite = bool(torch.isfinite(logits.float()).all())
+    # capacity routing: the teacher-forced rows route the whole sequence,
+    # the engine its bucket and then one token a step, so they may differ
+    match = (logits[:, 127:-1].argmax(-1) == seqs[:, 128:]).float().mean().item()
+    launches = decode_step_launches(cfg, params)
+    dense = RECORDS["serving_1b"]
+    rec = {"phase": "serving_1b_moe", "card": card(), "requests": len(prompts),
+           "slots": 8, "prompt_len": 128, "new_tokens": 128, "chunk_tokens": 32,
+           "seconds": dt, "engine_tokens_per_sec": len(prompts) * 128 / dt,
+           "dense_engine_tokens_per_sec": dense["engine_tokens_per_sec"],
+           **pump_times(pumps), "engine_flash_launches": engine_counts,
+           "scoring_flash_launches": score_launches, "scoring_finite": finite,
+           "served_equals_teacher_forced_argmax": match,
+           "launches_per_decode_step": launches,
+           "dense_launches_per_decode_step":
+               RECORDS["serving_1b_sampled"]["launches_per_decode_step"],
+           "stats": eng.stats()}
+    emit(rec)
+    if any(engine_counts.values()) or score_launches != cfg.n_layers \
+            or not finite:
+        raise AssertionError(f"1B-MoE serving: engine launches "
+                             f"{engine_counts}, scoring {score_launches}, "
+                             f"finite {finite}")
+    lanes = [dict(SAMPLED, seed=1000 + i) for i in range(len(prompts))]
+    runs = []
+    for _ in range(2):
+        pumps = []
+        fa.reset_launch_count()
+        got, dt = serve(eng, prompts, 128, lanes, pumps=pumps)
+        add_counts(counts, fa.launch_counts())
+        runs.append((got, dt, pumps))
+    (a, dt, pumps), (b, dt2, _) = runs
+    equal = sum(x.tokens == y.tokens and bits_equal(x.logprobs, y.logprobs)
+                for x, y in zip(a, b))
+    lps = np.array([s.logprobs for s in a], np.float32)
+    ok = bool(equal == len(prompts) and np.isfinite(lps).all()
+              and (lps <= 0).all())
+    emit({"phase": "serving_1b_moe_sampled", "card": card(),
+          "requests": len(prompts), "new_tokens": 128, **SAMPLED,
+          "seeds": "1000 + i", "seconds": dt,
+          "engine_tokens_per_sec": len(prompts) * 128 / dt,
+          "second_run_tokens_per_sec": len(prompts) * 128 / dt2,
+          "dense_engine_tokens_per_sec":
+              RECORDS["serving_1b_sampled"]["engine_tokens_per_sec"],
+          **pump_times(pumps), "second_run_bit_equal_streams": equal,
+          "logprob_min": float(lps.min()), "ok": ok})
+    if not ok:
+        raise AssertionError(f"1B-MoE sampled: {equal} of {len(prompts)} "
+                             f"streams replayed bit for bit")
+    return counts
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_moe_layer_card_vs_cpu(cfg):
+    """One capacity-routed MoE MLP at the 1B-MoE widths in f32 (TF32 off),
+    x [1, 1024, 2048] from a seeded numpy stream, capacity factor 1.25
+    (capacity 320; expert 0's router column scaled 4x, so that tokens
+    drop), on the card and on the CPU from the same
+    weights: the same slots and drops, outputs within a relative L2 of
+    1e-4. Then, on the card, the dense impl against the capacity impl at
+    capacity factor = n_experts (nothing can drop), same tolerance."""
+    cfg = llama.LlamaConfig(**{**cfg.__dict__, "dtype": "float32"})
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    g = torch.Generator().manual_seed(SEED + 900)
+    cpu = {"router": torch.randn(d, e, generator=g) / d ** 0.5,
+           "w_gate": torch.randn(e, d, f, generator=g) / d ** 0.5,
+           "w_up": torch.randn(e, d, f, generator=g) / d ** 0.5,
+           "w_down": torch.randn(e, f, d, generator=g) / f ** 0.5}
+    # a random router spreads tokens evenly (no expert near 1.25 x its
+    # share); one favoured expert, as trained routers have, makes drops
+    cpu["router"][:, 0] *= 4.0
+    card_p = {k: v.cuda() for k, v in cpu.items()}
+    x = torch.from_numpy(np.random.RandomState(SEED + 900).randn(
+        1, 1024, d).astype(np.float32))
+    xc = x.cuda()
+    capacity = llama.moe_capacity(cfg, x.shape[1])
+    slots = {}
+    for dev, p, xx in (("cpu", cpu, x), ("cuda", card_p, xc)):
+        gates = llama.moe_gates(cfg, p["router"], xx)
+        _, topi, pos = llama._capacity_slots(cfg, gates, capacity)
+        slots[dev] = (topi.cpu(), pos.cpu())
+    t0 = time.perf_counter()
+    y_cpu = llama._moe_mlp_capacity(cfg, cpu, x)
+    cpu_s = time.perf_counter() - t0
+    y_card = llama._moe_mlp_capacity(cfg, card_p, xc)
+    torch.cuda.synchronize()
+    same_slots = all(torch.equal(a, b) for a, b in zip(slots["cpu"],
+                                                       slots["cuda"]))
+    drops = {dev: int((pos >= capacity).sum()) for dev, (_, pos) in slots.items()}
+    rel = rel_l2(y_card, y_cpu)
+    wide = llama.LlamaConfig(**{**cfg.__dict__, "capacity_factor": float(e)})
+    y_cap = llama._moe_mlp_capacity(wide, card_p, xc)
+    y_dense = llama._moe_mlp_dense(wide, card_p, xc)
+    rel_dense = rel_l2(y_cap, y_dense)
+    tol = 1e-4
+    ok = (same_slots and drops["cpu"] == drops["cuda"] > 0 and rel <= tol
+          and rel_dense <= tol and bool(torch.isfinite(y_card).all()))
+    emit({"phase": "moe_layer_card_vs_cpu", "card": card(), "tokens": 1024,
+          "d_model": d, "d_ff": f, "n_experts": e, "top_k": cfg.top_k,
+          "capacity": capacity, "same_slots": same_slots,
+          "dropped_choices": drops, "rel_l2_card_vs_cpu": rel,
+          "wide_capacity": llama.moe_capacity(wide, x.shape[1]),
+          "rel_l2_capacity_vs_dense_no_drops": rel_dense, "tol": tol,
+          "cpu_seconds": cpu_s, "ok": ok})
+    if not ok:
+        raise AssertionError(f"MoE layer card vs CPU: slots {same_slots}, "
+                             f"drops {drops}, rel {rel}, dense {rel_dense}")
+    del card_p, y_card, y_cap, y_dense
+    torch.cuda.empty_cache()
+
+
+def phase_exactness_f32_2layer_moe():
+    """The 1B-MoE widths at 2 layers in f32 (TF32 off) with dense expert
+    dispatch, where a token's output depends on the token alone: the
+    engine against greedy_generate and every engine path against the one
+    it must reproduce (exactness_f32_engine_paths), by the near-tie rule.
+    Then the capacity impl at capacity factor 8 (nothing can drop) serves
+    the same prompts: its tokens equal the dense impl's, by the same rule.
+    Under capacity routing with drops these equalities do not hold, in
+    the JAX package either: a row's length and padding choose what
+    drops."""
+    cfg = moe_1b_config(n_layers=2, dtype="float32", moe_impl="dense")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = llama.init_params(cfg, g, device="cuda")
+    kw = dict(slots=8, max_len=288, chunk_tokens=32, prompt_buckets=(64, 128),
+              device="cuda")
+    prompts = exactness_prompts()
+    new_tokens = 32
+    lanes = [{}] * len(prompts)
+    streams, _ = serve(decode_engine.RaggedDecoder(params, cfg, **kw), prompts,
+                       new_tokens, lanes)
+    greedy = [s.tokens for s in streams]
+    divs = []
+    for p, toks in zip(prompts, greedy):
+        ref = llama.greedy_generate(params, torch.from_numpy(p[None]).cuda(),
+                                    cfg, new_tokens)[0, len(p):].tolist()
+        i, margin = assert_tokens_agree(toks, ref,
+                                        stream_scores(params, cfg, p, toks))
+        if i is not None:
+            divs.append({"at": i, "margin": margin})
+    emit({"phase": "exactness_f32_2layer_moe", "check": "engine_vs_greedy_generate",
+          "card": card(), "moe_impl": "dense", "streams": len(prompts),
+          "divergences": divs, "near_tie_tol": NEAR_TIE_TOL, "ok": True})
+    exactness_f32_engine_paths(cfg, params, prompts, greedy, new_tokens,
+                               tag="exactness_f32_2layer_moe")
+    cap_cfg = llama.LlamaConfig(**{**cfg.__dict__, "moe_impl": "capacity",
+                                   "capacity_factor": 8.0})
+    streams, _ = serve(decode_engine.RaggedDecoder(params, cap_cfg, **kw),
+                       prompts, new_tokens, lanes)
+    divs, equal = [], 0
+    for p, s, want in zip(prompts, streams, greedy):
+        i, margin = assert_tokens_agree(
+            s.tokens, want, stream_scores(params, cfg, p, s.tokens))
+        equal += i is None
+        if i is not None:
+            divs.append({"at": i, "margin": margin})
+    emit({"phase": "exactness_f32_2layer_moe",
+          "check": "capacity_factor_8_vs_dense", "card": card(),
+          "streams": len(prompts), "equal_streams": equal,
+          "divergences": divs, "near_tie_tol": NEAR_TIE_TOL, "ok": True})
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_serving_moe_tiny_server():
+    """LLMServer("moe-tiny", device="cuda"), the MoE model build_model
+    names (bf16, 4 experts, top-2, vocab 32128): 8 requests from 4
+    handler threads, half by generate() and half streamed; its tokens
+    equal a bare RaggedDecoder's on the same weights (near-tie rule), no
+    pump error is logged and shutdown drains."""
+    rng = np.random.RandomState(SEED + 12)
+    prompts = [rng.randint(1, 30000, 24).astype(np.int32) for _ in range(8)]
+    kw = dict(slots=4, max_len=96, chunk_tokens=8, prompt_buckets=(32,))
+    errors = PumpErrors()
+    port_log = logging.getLogger("ray_tpu_torch")
+    port_log.addHandler(errors)
+    try:
+        fa.reset_launch_count()
+        srv = serve_llm.LLMServer("moe-tiny", seed=SEED, device="cuda", **kw)
+        results, dt, _, _, _ = serve_through_server(
+            srv, prompts, 32, lambda k: None, concurrency=4)
+        counts = fa.launch_counts()
+        drained = srv.shutdown(30)
+    finally:
+        port_log.removeHandler(errors)
+    params, cfg = srv.engine.params, srv.cfg
+    bare, _ = serve(decode_engine.RaggedDecoder(params, cfg, device="cuda", **kw),
+                    prompts, 32, [{}] * len(prompts))
+    divs = []
+    for p, r, s in zip(prompts, results, bare):
+        i, margin = assert_tokens_agree(r["tokens"], s.tokens,
+                                        stream_scores(params, cfg, p, r["tokens"]))
+        if i is not None:
+            divs.append({"at": i, "margin": margin})
+    ok = not errors.records and drained and not any(counts.values()) \
+        and cfg.n_experts == 4
+    emit({"phase": "serving_moe_tiny_server", "card": card(),
+          "requests": len(prompts), "handler_threads": 4,
+          "n_experts": cfg.n_experts, "dtype": cfg.dtype, "seconds": dt,
+          "server_tokens_per_sec": len(prompts) * 32 / dt,
+          "equal_to_bare_engine": len(prompts) - len(divs),
+          "divergences": divs, "flash_launches": counts, "drained": drained,
+          "pump_errors": errors.records, "ok": ok})
+    if not ok:
+        raise AssertionError(f"moe-tiny server: pump errors {errors.records}, "
+                             f"drained {drained}, launches {counts}")
+    return counts
 
 
 def bwd_inputs(b, hq, hkv, t, s, d, dtype, causal, seed):
@@ -1755,7 +2123,11 @@ def train_setup(cfg, batch, seq):
 def phase_train(tag, cfg, batch, seq, expect, peaks, *, warm=2, timed=5):
     """`warm` train steps, then `timed` steps between CUDA events (see
     train_setup). Every step must launch exactly `expect` flash kernels.
-    Returns the launches of all steps."""
+    MFU is 6 x num_params x tokens/s over the peak (bench.py's); for a
+    MoE model, whose num_params counts every expert for every token, it
+    is 3 x the forward's products (moe_forward_flops: the forward and a
+    backward of twice its products, remat's recompute not counted) over
+    the step time. Returns the launches of all steps."""
     state, step, data = train_setup(cfg, batch, seq)
     per_step, losses, total = [], [], {}
 
@@ -1789,6 +2161,11 @@ def phase_train(tag, cfg, batch, seq, expect, peaks, *, warm=2, timed=5):
     losses = [float(x) for x in losses]
     n_params = cfg.num_params()
     tps = batch * seq / (step_ms / 1e3)
+    if cfg.n_experts:
+        mfu = 3 * moe_forward_flops(cfg, batch, seq) / (step_ms / 1e3) / peaks[0]
+        mfu_basis = "3 x forward products (moe_forward_flops)"
+    else:
+        mfu, mfu_basis = 6.0 * n_params * tps / peaks[0], "6 x num_params"
     bad_counts = [c for c in per_step if c != expect]
     ok = (all(np.isfinite(losses)) and np.isfinite(final)
           and final < losses[0] and not bad_counts)
@@ -1797,8 +2174,8 @@ def phase_train(tag, cfg, batch, seq, expect, peaks, *, warm=2, timed=5):
           "remat_policy": cfg.remat_policy, "grads_dtype": "bfloat16",
           "warm_steps": warm, "warm_seconds": warm_s, "timed_steps": timed,
           "step_ms": step_ms, "tokens_per_sec": tps,
-          "mfu": 6.0 * n_params * tps / peaks[0],
-          "mfu_peak_flops": peaks[0], "card": torch.cuda.get_device_name(0),
+          "mfu": mfu, "mfu_basis": mfu_basis,
+          "mfu_peak_flops": peaks[0], "card": card(),
           "losses": losses, "loss_after_last_step": final,
           "launches_per_step": per_step[-1], "expected_per_step": expect,
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -2127,6 +2504,19 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
         phase_exactness_f32()
+        moe_cfg, moe_params = phase_init_1b_moe()
+        by_path["scoring_1b_moe"] = phase_scoring_1b_moe(moe_cfg, moe_params,
+                                                         peaks)
+        by_path["serving_1b_moe"] = phase_serving_1b_moe(moe_cfg, moe_params)
+        del moe_params
+        torch.cuda.empty_cache()
+        phase_moe_layer_card_vs_cpu(moe_cfg)
+        phase_exactness_f32_2layer_moe()
+        by_path["serving_moe_tiny_server"] = phase_serving_moe_tiny_server()
+    by_path["train_1b_moe"] = phase_train(
+        "train_1b_moe", train_config("1b", "flash_qkv", n_experts=8, top_k=2,
+                                     n_layers=8), 2, 2048,
+        expected(flash_fwd_sm90=8, flash_bwd_fused_sm90=8), peaks)
     n350 = llama.llama2_size("350m").n_layers
     n1b = llama.llama2_size("1b").n_layers
     by_path["train_350m"] = phase_train(

@@ -1,9 +1,14 @@
-"""Llama-family decoder-only transformer (dense), in PyTorch.
+"""Llama-family decoder-only transformer, dense or mixture-of-experts,
+in PyTorch.
 
 Mirrors ray_tpu/models/llama.py: the same config fields and named sizes,
 the same parameter tree (layer weights stacked along axis 0, so a JAX
 tree converts key for key), the same GQA + RoPE + SwiGLU + RMSNorm
-pre-norm block. Weights keep JAX's ``x @ W`` orientation ([d_in, d_out]).
+pre-norm block, and the same MoE MLP (``n_experts > 0``): a top-k
+router, then either GShard capacity routing with per-row expert buffers
+(``moe_impl="capacity"``) or every expert on every token, masked by the
+gates (``"dense"``). Weights keep JAX's ``x @ W`` orientation
+([d_in, d_out]).
 
 Differences in idiom: parameters are a dict of tensors on an explicit
 device. For serving, matmul weights and the embedding are held in the
@@ -13,8 +18,10 @@ every leaf is an f32 master, as JAX's are. Weights are cast per use
 cache is updated IN PLACE (JAX's functional ``dynamic_update_slice``
 becomes a slice write) and the layer "scan" is a Python loop. Remat maps
 JAX's checkpoint policies onto ``torch.utils.checkpoint`` with selective
-checkpointing (``_remat_policy``). MoE, pipeline stages and sharding
-constraints are not part of this module (ROADMAP Queue 1).
+checkpointing (``_REMAT_POLICIES``). One device: pipeline stages,
+sharding constraints and expert parallelism are not part of this module
+(ROADMAP Queue 1); ``pipeline_microbatches`` is accepted and, as in JAX
+on a mesh without a pp axis, has no effect.
 """
 
 from __future__ import annotations
@@ -57,6 +64,16 @@ class LlamaConfig:
     remat_policy: str = "dots"
     use_flash: bool | None = None  # None/True: flash kernel; False: reference
     tie_embeddings: bool = False
+    # Mixture-of-experts MLP (0 = dense MLP): top_k of n_experts experts
+    # per token, routed by moe_impl ("capacity" or "dense"); each expert's
+    # buffer per batch row holds ceil(top_k * T / E * capacity_factor)
+    # tokens, and tokens routed past a full buffer are dropped (the
+    # residual still carries them).
+    n_experts: int = 0
+    top_k: int = 2
+    moe_impl: str = "capacity"
+    capacity_factor: float = 1.25
+    pipeline_microbatches: int = 0  # GPipe microbatches: no effect here
 
     @property
     def head_dim(self) -> int:
@@ -71,7 +88,11 @@ class LlamaConfig:
         hd = self.head_dim
         attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
-        per_layer = attn + 3 * d * f + 2 * d
+        if self.n_experts > 0:
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            mlp = 3 * d * f
+        per_layer = attn + mlp + 2 * d
         head = 0 if self.tie_embeddings else d * v
         return v * d + l * per_layer + d + head
 
@@ -86,10 +107,17 @@ class LlamaConfig:
         return LlamaConfig(**base)
 
 
+def llama2_7b() -> LlamaConfig:
+    return llama2_size("7b")
+
+
 def llama2_size(name: str) -> LlamaConfig:
-    """Named dense sizes: '125m', '350m', '1b', '7b'."""
+    """Named sizes: '125m', 'moe-tiny', '350m', '1b', '7b'."""
     table = {
         "125m": dict(d_model=768, n_layers=12, n_heads=12, n_kv_heads=12, d_ff=2048),
+        "moe-tiny": dict(d_model=128, n_layers=2, n_heads=4, n_kv_heads=4,
+                         d_ff=256, vocab_size=512, max_seq_len=128,
+                         n_experts=4, top_k=2),
         "350m": dict(d_model=1024, n_layers=24, n_heads=8, n_kv_heads=8, d_ff=2816),
         "1b": dict(d_model=2048, n_layers=22, n_heads=16, n_kv_heads=8, d_ff=5632),
         "7b": dict(d_model=4096, n_layers=32, n_heads=32, n_kv_heads=32, d_ff=11008),
@@ -102,15 +130,19 @@ def llama2_size(name: str) -> LlamaConfig:
 # --------------------------------------------------------------------------
 
 def _shapes(cfg: LlamaConfig) -> dict:
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    d, f, hd, e = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_experts
     hq, hkv, l = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
     layers = {
         "attn_norm": (l, d),
         "wq": (l, d, hq * hd), "wk": (l, d, hkv * hd), "wv": (l, d, hkv * hd),
         "wo": (l, hq * hd, d),
         "mlp_norm": (l, d),
-        "w_gate": (l, d, f), "w_up": (l, d, f), "w_down": (l, f, d),
     }
+    if e > 0:
+        layers.update(router=(l, d, e), w_gate=(l, e, d, f),
+                      w_up=(l, e, d, f), w_down=(l, e, f, d))
+    else:
+        layers.update(w_gate=(l, d, f), w_up=(l, d, f), w_down=(l, f, d))
     out = {"embed": (cfg.vocab_size, d), "layers": layers, "final_norm": (d,)}
     if not cfg.tie_embeddings:
         out["lm_head"] = (d, cfg.vocab_size)
@@ -120,7 +152,8 @@ def _shapes(cfg: LlamaConfig) -> dict:
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
                 device=None, master: bool = False) -> dict:
     """Random params with JAX's init law: embed ~ N(0, 1), each dense
-    weight ~ N(0, 1/fan_in), norms 1. Drawn in f32 from ``generator``
+    weight ~ N(0, 1/fan_in) (fan_in: the contracted dimension, the
+    second-to-last), norms 1. Drawn in f32 from ``generator``
     (seed 0 on the target device when None). Matmul weights and the
     embedding are then cast to the compute dtype (norms stay f32), or,
     with ``master=True``, every leaf stays f32 (training masters)."""
@@ -142,7 +175,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
     shapes = _shapes(cfg)
     layers = {}
     for name, shape in shapes["layers"].items():
-        layers[name] = ones(shape) if name in _NORMS else normal(shape, shape[1])
+        layers[name] = ones(shape) if name in _NORMS else normal(shape, shape[-2])
     params = {
         "embed": normal(shapes["embed"], 0),
         "layers": layers,
@@ -183,6 +216,33 @@ def from_jax_params(np_tree: dict, cfg: LlamaConfig, device=None,
     return out
 
 
+def param_logical_axes(cfg: LlamaConfig) -> dict:
+    """The tree of init_params with, at each leaf, the logical axis names
+    of its dimensions (JAX's, for the sharding rules of a mesh)."""
+    layers = {
+        "attn_norm": ("layers", "norm"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "norm"),
+    }
+    if cfg.n_experts > 0:
+        layers.update(router=("layers", "embed", None),
+                      w_gate=("layers", "expert", "embed", "mlp"),
+                      w_up=("layers", "expert", "embed", "mlp"),
+                      w_down=("layers", "expert", "mlp", "embed"))
+    else:
+        layers.update(w_gate=("layers", "embed", "mlp"),
+                      w_up=("layers", "embed", "mlp"),
+                      w_down=("layers", "mlp", "embed"))
+    axes = {"embed": ("vocab", "embed"), "layers": layers,
+            "final_norm": ("norm",)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def _unbind_layers(params: dict) -> list:
     """Per-layer views of the stacked [L, ...] weights. One unbind per
     leaf, so a backward stacks each leaf's gradient once instead of
@@ -219,13 +279,123 @@ def _qkv(cfg: LlamaConfig, p, h, sin, cos):
     return apply_rotary(q, sin, cos), apply_rotary(k, sin, cos), v
 
 
+def moe_gates(cfg: LlamaConfig, router, x):
+    """Router probabilities with top-k masking, [B, T, E] f32: the
+    softmax of ``x @ router`` with every prob below the k-th largest set
+    to 0, renormalised. Probs that tie at the k-th value all survive, so
+    a row may keep more than top_k entries."""
+    logits = x @ router.to(cfg.compute_dtype)  # [B, T, E]
+    probs = torch.softmax(logits.float(), dim=-1)
+    if cfg.top_k < cfg.n_experts:
+        kth = torch.sort(probs, dim=-1).values[..., -cfg.top_k, None]
+        probs = torch.where(probs >= kth, probs, 0.0)
+        probs = probs / probs.sum(dim=-1, keepdim=True)
+    return probs
+
+
+def _moe_mlp_dense(cfg: LlamaConfig, p, x):
+    """Every expert computes every token; the gates weight the sum. The
+    parity oracle of the capacity path: with no drops both compute the
+    same weighted sum. gate and up are ``x @ W`` over the experts'
+    weights laid side by side, one no-batch product (``aten.mm``) each,
+    which the "dots" remat policies save as JAX's save its ``btd,edf``
+    einsums; the other products are batched and recomputed."""
+    cdt = cfg.compute_dtype
+    b, t, d = x.shape
+    e, f = cfg.n_experts, cfg.d_ff
+    gates = moe_gates(cfg, p["router"], x).to(cdt)  # [B, T, E]
+
+    def all_experts(w):  # "btd,edf->btef"
+        return (x @ w.to(cdt).transpose(0, 1).reshape(d, e * f)).reshape(
+            b, t, e, f)
+
+    gate, up = all_experts(p["w_gate"]), all_experts(p["w_up"])
+    y = torch.einsum("btef,efd->bted", F.silu(gate) * up, p["w_down"].to(cdt))
+    return torch.einsum("bted,bte->btd", y, gates)
+
+
+def moe_capacity(cfg: LlamaConfig, t: int) -> int:
+    """Token slots each expert owns per batch row of ``t`` tokens:
+    ceil(top_k * t / E * capacity_factor), at most t * top_k."""
+    k, e = cfg.top_k, cfg.n_experts
+    return min(t * k, int(math.ceil(k * t / e * cfg.capacity_factor)))
+
+
+def _capacity_slots(cfg: LlamaConfig, gates, capacity: int):
+    """GShard slot assignment. gates [B, T, E] f32 (``moe_gates``) ->
+    (topv [B, T, k] f32, topi [B, T, k], pos [B, T, k] int32): each
+    token's k choices by descending gate, lower expert index first among
+    equal gates (``jax.lax.top_k``'s order, from a stable sort), and the
+    slot each choice takes in its expert's buffer. Slots fill in token
+    order, all first choices of the row before any second choice; a slot
+    >= ``capacity`` means the choice is dropped."""
+    e, k = cfg.n_experts, cfg.top_k
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    counts = torch.zeros(gates.shape[0], 1, e, dtype=torch.int32,
+                         device=gates.device)
+    pos = []
+    for j in range(k):
+        mask_j = F.one_hot(topi[..., j], e).to(torch.int32)  # [B, T, E]
+        slot = torch.cumsum(mask_j, dim=1, dtype=torch.int32) - mask_j + counts
+        counts = counts + mask_j.sum(dim=1, keepdim=True, dtype=torch.int32)
+        pos.append((slot * mask_j).sum(dim=-1, dtype=torch.int32))
+    return topv, topi, torch.stack(pos, dim=-1)
+
+
+def _moe_mlp_capacity(cfg: LlamaConfig, p, x):
+    """GShard top-k capacity routing: per batch row, each expert owns
+    ``moe_capacity(cfg, T)`` token slots (``_capacity_slots``); one-hot
+    dispatch and combine tensors make the layer dense products:
+
+        xe [B,E,C,D] = dispatch [B,T,E,C] . x [B,T,D]
+        ye [B,E,C,D] = expert_mlp(xe)
+        y  [B,T,D]   = combine  [B,T,E,C] . ye
+
+    A dropped choice gets an all-zero dispatch and combine row (where
+    ``jax.nn.one_hot`` of an out-of-range slot gives zeros, the slot is
+    clamped and the row masked). dispatch is built in the compute dtype,
+    combine in f32 and cast for the last product, as in JAX."""
+    cdt = cfg.compute_dtype
+    e, k = cfg.n_experts, cfg.top_k
+    capacity = moe_capacity(cfg, x.shape[1])
+    gates = moe_gates(cfg, p["router"], x)
+    topv, topi, pos = _capacity_slots(cfg, gates, capacity)
+    keep = (pos < capacity).to(cdt)
+    dispatch = combine = 0
+    for j in range(k):
+        oh_c = F.one_hot(pos[..., j].clamp(max=capacity - 1).long(),
+                         capacity).to(cdt) * keep[..., j, None]
+        contrib = F.one_hot(topi[..., j], e).to(cdt)[..., None] * oh_c[..., None, :]
+        dispatch = dispatch + contrib
+        combine = combine + contrib.float() * topv[..., j, None, None]
+    xe = torch.einsum("btec,btd->becd", dispatch, x.to(cdt))
+    gate = torch.einsum("becd,edf->becf", xe, p["w_gate"].to(cdt))
+    up = torch.einsum("becd,edf->becf", xe, p["w_up"].to(cdt))
+    ye = torch.einsum("becf,efd->becd", F.silu(gate) * up, p["w_down"].to(cdt))
+    return torch.einsum("btec,becd->btd", combine.to(cdt), ye)
+
+
+def _moe_mlp(cfg: LlamaConfig, p, x):
+    if cfg.moe_impl == "dense":
+        return _moe_mlp_dense(cfg, p, x)
+    if cfg.moe_impl == "capacity":
+        return _moe_mlp_capacity(cfg, p, x)
+    raise ValueError(
+        f"unknown moe_impl {cfg.moe_impl!r}; expected 'capacity' or 'dense'")
+
+
 def _attn_out_and_mlp(cfg: LlamaConfig, p, h, o):
-    """wo projection + residual + dense SwiGLU MLP + residual. gate and
-    up carry the reference's checkpoint names (mlp_gate, mlp_up)."""
+    """wo projection + residual + MLP + residual: the MoE MLP when
+    ``cfg.n_experts > 0`` (no checkpoint names, as in JAX), else the dense
+    SwiGLU, whose gate and up carry the reference's checkpoint names
+    (mlp_gate, mlp_up)."""
     b, t, _ = h.shape
     cdt = cfg.compute_dtype
     h = h + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cdt)
     x = rms_norm(h, p["mlp_norm"], cfg.rms_eps)
+    if cfg.n_experts > 0:
+        return h + _moe_mlp(cfg, p, x)
     w_gate, w_up = p["w_gate"].to(cdt), p["w_up"].to(cdt)
     with checkpoint_name("mlp_gate"):
         gate = x @ w_gate
@@ -259,8 +429,10 @@ _REMAT_POLICIES = {
 def _save_policy(save_dots: bool, names: tuple, ctx, func, *args, **kwargs):
     """Save an op's outputs if it runs under a listed checkpoint name or,
     with ``save_dots``, if it is a weight matmul: ``x @ W`` dispatches as
-    ``aten.mm`` (jax's dots_with_no_batch_dims; batched attention
-    products are ``bmm`` and are recomputed)."""
+    ``aten.mm`` (jax's dots_with_no_batch_dims). Batched products are
+    ``bmm`` and are recomputed: attention's, and every MoE einsum but the
+    router's and the dense impl's gate and up, which are ``mm`` as their
+    JAX einsums have no batch dimension."""
     if current_name() in names or (save_dots and func is torch.ops.aten.mm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE

@@ -8,7 +8,7 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import train
-from ray_tpu_torch.models import decode_engine, llama
+from ray_tpu_torch.models import decode_engine, llama, mlp
 from ray_tpu_torch.serve import llm, llm_pool
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     return files
 
 
@@ -33,8 +33,10 @@ def _imported_roots(path):
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    assert {"chip_smoke.py", "ray_tpu_torch/ops/flash_attention.py",
+    assert {"chip_smoke.py", "chip_ab.py",
+            "ray_tpu_torch/ops/flash_attention.py",
             "ray_tpu_torch/models/decode_engine.py",
+            "ray_tpu_torch/models/llama.py", "ray_tpu_torch/models/mlp.py",
             "ray_tpu_torch/serve/hooks.py", "ray_tpu_torch/serve/llm.py",
             "ray_tpu_torch/serve/llm_pool.py",
             "ray_tpu_torch/serve/runtime.py",
@@ -70,6 +72,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         llama.from_jax_params({}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llm.build_model("tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llm.build_model("moe-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_params(llama.llama2_size("moe-tiny"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mlp.init_params(mlp.MLPConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llm.LLMServer()
     with pytest.raises(RuntimeError, match="no CUDA device"):
