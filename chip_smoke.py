@@ -30,7 +30,11 @@ training path: Llama-350m at B=8 x T=2048 and Llama-1B at B=2 x T=2048,
 both at full width and depth (bench.py's headline configurations), a
 2-layer 350m-width step at T=16384 that takes the dq + dkv backward
 kernels, and an f32 check of every gradient against the reference
-attention. Every bf16 head_dim-128 flash call on those paths must go
+attention. Then the mesh path in a world of one rank (NCCL): the
+multi-device dry run, the Llama-1B step through the mesh forms of the
+train step (every leaf and activation a DTensor) held to the one-device
+step, and ring and Ulysses attention at sp = 1. Every bf16 head_dim-128
+flash call on those paths must go
 through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
 past 8192 keys flash_bwd_dq_sm90 + flash_bwd_dkv_sm90), which the launch
 counts by entry point show. It checks the results and prints one JSON
@@ -56,10 +60,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ray_tpu_torch import _kernels, train
+from ray_tpu_torch import _kernels, multichip, train
 from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import ring_attention, ulysses
+from ray_tpu_torch.parallel import launch
+from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve import llm_pool
 from ray_tpu_torch.serve import runtime as serve_runtime
@@ -2328,6 +2336,164 @@ def phase_grad_exactness_f32():
     torch.cuda.empty_cache()
 
 
+def phase_mesh_dryrun_card():
+    """ray_tpu_torch.multichip.dryrun_multichip(1): one sharded train step
+    of the tiny dry-run model in a world of one rank (a spawned process,
+    NCCL, this card). Its rank prints the dryrun_multichip ok line."""
+    t0 = time.perf_counter()
+    loss = multichip.dryrun_multichip(1)
+    ok = bool(np.isfinite(loss))
+    emit({"phase": "mesh_dryrun_card", "world": 1, "backend": "nccl",
+          "loss": loss, "seconds": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise AssertionError(f"mesh dry run: loss {loss}")
+
+
+def mesh_train_step(cfg, mesh):
+    """train_setup's state and step on ``mesh``: the same seeded params
+    (every leaf a DTensor by the default rules), optimizer and bf16
+    gradients, through init_train_state / make_train_step's mesh forms."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    opt = train.fused_adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16,
+                            nu_dtype=torch.bfloat16)
+    state, state_sh = train.init_train_state(
+        lambda dev, place: llama.init_params(cfg, g, dev, master=True,
+                                             place=place),
+        llama.param_logical_axes(cfg), opt, mesh)
+    step = train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt,
+                                 mesh, state_sh, compute_grad_norm=False,
+                                 grads_dtype=torch.bfloat16)
+    return state, step
+
+
+def run_steps(step, state, data, n, expect, tag):
+    """n steps between CUDA events: (state, losses, step ms, launches of the
+    last step); every step must launch exactly ``expect``."""
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fa.reset_launch_count()
+        state, metrics = step(state, data)
+        counts = fa.launch_counts()
+        if counts != expect:
+            raise AssertionError(f"{tag}: a step launched {counts}, "
+                                 f"expected {expect}")
+        losses.append(metrics["loss"])
+    end.record()
+    end.synchronize()
+    return state, [float(x) for x in losses], start.elapsed_time(end) / n, counts
+
+
+def phase_train_1b_mesh(expect):
+    """The slice's path at full width: train_1b's configuration (Llama-1B,
+    B2 x T2048, flash_qkv, bf16 gradients and moments) through the mesh
+    forms of init_train_state and make_train_step on a world-1 DeviceMesh
+    (all six axes of size 1, NCCL, DEFAULT_RULES), so every leaf and
+    activation is a DTensor and the flash kernels launch on the local
+    blocks. Held against the one-device step on the same params and
+    batch: the losses of steps 1 and 2 within rel 1e-3 and the largest
+    param difference after them (printed, with whether it is bit-equal,
+    beside the same for a second one-device run); every step launches
+    `expect`. Then 3 more mesh steps are timed (CUDA
+    events) beside train_1b's step time in this run, with the mesh
+    step's peak memory (the one-device state freed first)."""
+    cfg = train_config("1b", "flash_qkv")
+
+    def one_device_params():
+        plain, plain_step, data = train_setup(cfg, 2, 2048)
+        plain, losses, _, _ = run_steps(plain_step, plain, data, 2, expect,
+                                        "train_1b (one device)")
+        params = [x.cpu() for x in tree_leaves(plain.params)]
+        del plain, plain_step
+        torch.cuda.empty_cache()
+        return params, losses, data
+
+    def max_diff(got, want):
+        diff, equal = 0.0, True
+        for a, b in zip(got, want):
+            a, b = a.cuda(), b.cuda()
+            diff = max(diff, float((a - b).abs().max()))
+            equal = equal and bool(torch.equal(a, b))
+        return diff, equal
+
+    plain_params, plain_losses, data = one_device_params()
+    # the same two one-device steps again: the fused backward adds dq
+    # by f32 atomics, in an order that changes from run to run
+    rerun_diff, rerun_equal = max_diff(one_device_params()[0], plain_params)
+    launch.init_process(0, 1, "cuda")
+    try:
+        mesh = build_mesh(MeshConfig())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, step = mesh_train_step(cfg, mesh)
+        init_s = time.perf_counter() - t0
+        state, mesh_losses, first_ms, _ = run_steps(step, state, data, 2, expect,
+                                                    "train_1b_mesh")
+        diff, equal = max_diff([x.to_local() for x in tree_leaves(state.params)],
+                               plain_params)
+        placements = sorted({str(tuple(x.placements)) for x in
+                             tree_leaves(state.params)})
+        state, _, mesh_ms, counts = run_steps(step, state, data, 3, expect,
+                                              "train_1b_mesh")
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        del state, step
+    finally:
+        dist.destroy_process_group()
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh_losses, plain_losses)]
+    ok = max(rel) <= 1e-3 and all(np.isfinite(mesh_losses))
+    emit({"phase": "train_1b_mesh", "world": 1, "mesh": "1chip",
+          "placements": placements, "losses": mesh_losses,
+          "one_device_losses": plain_losses, "loss_rel_diff": rel,
+          "loss_rel_tol": 1e-3, "max_param_diff_after_2_steps": diff,
+          "params_bit_equal": equal,
+          "one_device_rerun_max_param_diff": rerun_diff,
+          "one_device_rerun_bit_equal": rerun_equal, "init_seconds": init_s,
+          "first_two_steps_ms": first_ms, "step_ms": mesh_ms,
+          "train_1b_step_ms": RECORDS.get("train_1b", {}).get("step_ms"),
+          "max_allocated_gb": peak_gb, "launches_per_step": counts,
+          "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_1b_mesh: losses {mesh_losses} against "
+                             f"{plain_losses}")
+    torch.cuda.empty_cache()
+    return {k: 5 * v for k, v in counts.items()}
+
+
+def phase_seq_parallel_card():
+    """ring_attention and ulysses_attention in a world of one rank (sp = 1)
+    on the 1B attention shape (B2, 16/8 heads, T 2048, bf16, causal),
+    each against the flash kernel's plain version. Ulysses at sp = 1 is
+    ops.attention: it must launch flash_fwd_sm90. Returns the launches of
+    the Ulysses call."""
+    q, k, v = flash_inputs(2, 16, 8, 2048, 2048, 128, torch.bfloat16, SEED + 700)
+    want = fa.flash_attention_fwd_plain(q, k, v, causal=True)[0].transpose(1, 2)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    launch.init_process(0, 1, "cuda")
+    try:
+        mesh = build_mesh(MeshConfig())
+        with torch.no_grad():
+            ring = ring_attention.ring_attention(qs, ks, vs, mesh)
+            fa.reset_launch_count()
+            uly = ulysses.ulysses_attention(qs, ks, vs, mesh=mesh)
+            counts = fa.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    err = {name: float((x.float() - want.float()).abs().max())
+           for name, x in (("ring", ring), ("ulysses", uly))}
+    tol = TOL[torch.bfloat16]["out"]
+    ok = max(err.values()) <= tol and counts == expected(flash_fwd_sm90=1)
+    emit({"phase": "seq_parallel_card", "world": 1, "sp": 1,
+          "shape": [2, 2048, 16, 8, 128], "dtype": "bfloat16",
+          "max_abs_err_vs_plain": err, "tol": tol, "ulysses_launches": counts,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"seq_parallel_card: errors {err}, launches "
+                             f"{counts}")
+    return counts
+
+
 def sdpa_bwd_ms(q, k, v, do):
     """The library's backward alone: scaled_dot_product_attention forward
     + backward minus its forward, on the same inputs (timed only)."""
@@ -2532,6 +2698,10 @@ def main() -> None:
         expected(flash_fwd_sm90=2, flash_bwd_dq_sm90=2, flash_bwd_dkv_sm90=2), peaks)
     phase_grad_exactness_f32()
     phase_sr_card_vs_cpu()
+    phase_mesh_dryrun_card()
+    by_path["train_1b_mesh"] = phase_train_1b_mesh(
+        expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b))
+    by_path["seq_parallel_card"] = phase_seq_parallel_card()
     phase_profile("profile_train_350m", train_config("350m", "dots_flash_qkv_mlp"),
                   8, 2048)
     phase_profile("profile_train_long_context", long_cfg, 1, 16384, steps=5)

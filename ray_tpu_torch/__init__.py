@@ -2,7 +2,8 @@
 
 The JAX package ``ray_tpu`` is the reference; this package mirrors its
 module paths and public names (``ops``, ``models.llama``,
-``models.decode_engine``, ``train``) and imports nothing from it. Importing this
+``models.decode_engine``, ``train``, ``parallel``, ``collective``) and
+imports nothing from it. Importing this
 package compiles nothing: the CUDA kernels build on their first launch
 (``_kernels.py``).
 """

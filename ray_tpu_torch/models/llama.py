@@ -18,10 +18,16 @@ every leaf is an f32 master, as JAX's are. Weights are cast per use
 cache is updated IN PLACE (JAX's functional ``dynamic_update_slice``
 becomes a slice write) and the layer "scan" is a Python loop. Remat maps
 JAX's checkpoint policies onto ``torch.utils.checkpoint`` with selective
-checkpointing (``_REMAT_POLICIES``). One device: pipeline stages,
-sharding constraints and expert parallelism are not part of this module
-(ROADMAP Queue 1); ``pipeline_microbatches`` is accepted and, as in JAX
-on a mesh without a pp axis, has no effect.
+checkpointing (``_REMAT_POLICIES``).
+
+On a device mesh (params that are DTensors, under ``parallel.use_mesh``)
+the model makes JAX's ``shard_constraint`` calls at the same points, and
+each weight product, the attention and the MoE MLP run on every rank's
+local blocks (``parallel.sharding.matmul``, ``ops.flash_attention``,
+``_moe_on_mesh``: each ep rank computes only its own experts). Pipeline
+stages over pp are not ported yet (ROADMAP Queue 1 item 6): ``forward``
+raises on a mesh with pp > 1, and ``pipeline_microbatches`` is accepted
+and, as in JAX on a mesh without a pp axis, has no effect.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -41,6 +49,9 @@ from ray_tpu_torch.ops.attention import _repeat_kv, attention
 from ray_tpu_torch.ops.losses import softmax_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rotary, rotary_embedding
+from ray_tpu_torch.parallel.mesh import current_mesh, mesh_config
+from ray_tpu_torch.parallel.sharding import (local_slices, matmul,
+                                             shard_constraint, to_mesh)
 from ray_tpu_torch.utils.checkpoint_names import checkpoint_name, current_name
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -149,70 +160,82 @@ def _shapes(cfg: LlamaConfig) -> dict:
     return out
 
 
+def _keep(path: str, leaf: torch.Tensor) -> torch.Tensor:
+    return leaf
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator | None = None,
-                device=None, master: bool = False) -> dict:
+                device=None, master: bool = False, place=_keep) -> dict:
     """Random params with JAX's init law: embed ~ N(0, 1), each dense
     weight ~ N(0, 1/fan_in) (fan_in: the contracted dimension, the
     second-to-last), norms 1. Drawn in f32 from ``generator``
     (seed 0 on the target device when None). Matmul weights and the
     embedding are then cast to the compute dtype (norms stay f32), or,
-    with ``master=True``, every leaf stays f32 (training masters)."""
+    with ``master=True``, every leaf stays f32 (training masters). Each
+    leaf goes through ``place(path, leaf)`` as soon as it is made (the
+    sharded init of ``train.init_train_state`` keeps a block of it)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     cdt = torch.float32 if master else cfg.compute_dtype
 
-    def normal(shape, fan_in):
+    def normal(path, shape, fan_in):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         if fan_in:
             x /= math.sqrt(fan_in)
-        return x.to(dev, cdt)
+        return place(path, x.to(dev, cdt))
 
-    def ones(shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
+    def ones(path, shape):
+        return place(path, torch.ones(shape, dtype=torch.float32, device=dev))
 
     shapes = _shapes(cfg)
     layers = {}
     for name, shape in shapes["layers"].items():
-        layers[name] = ones(shape) if name in _NORMS else normal(shape, shape[-2])
+        path = f"layers/{name}"
+        layers[name] = (ones(path, shape) if name in _NORMS
+                        else normal(path, shape, shape[-2]))
     params = {
-        "embed": normal(shapes["embed"], 0),
+        "embed": normal("embed", shapes["embed"], 0),
         "layers": layers,
-        "final_norm": ones(shapes["final_norm"]),
+        "final_norm": ones("final_norm", shapes["final_norm"]),
     }
     if "lm_head" in shapes:
-        params["lm_head"] = normal(shapes["lm_head"], cfg.d_model)
+        params["lm_head"] = normal("lm_head", shapes["lm_head"], cfg.d_model)
     return params
 
 
 def from_jax_params(np_tree: dict, cfg: LlamaConfig, device=None,
-                    master: bool = False) -> dict:
+                    master: bool = False, place=_keep) -> dict:
     """Convert ray_tpu's JAX param tree, given as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``), into this module's.
 
     Same keys and stacked [L, ...] shapes; weights keep the ``x @ W``
     orientation [d_in, d_out], so nothing is transposed. Matmul weights
     and the embedding go to the compute dtype, norms to f32; with
-    ``master=True`` every leaf stays f32."""
+    ``master=True`` every leaf stays f32. Each leaf goes through
+    ``place(path, leaf)``, as in ``init_params``."""
     dev = resolve_device(device)
     shapes = _shapes(cfg)
     wdt = torch.float32 if master else cfg.compute_dtype
 
-    def conv(a, shape, is_norm):
+    def conv(path, a, shape, is_norm):
         a = np.array(a, np.float32)  # a writable copy the tensor can own
         if a.shape != tuple(shape):
             raise ValueError(f"param shape {a.shape} != expected {shape}")
-        return torch.from_numpy(a).to(dev, torch.float32 if is_norm else wdt)
+        return place(path, torch.from_numpy(a).to(
+            dev, torch.float32 if is_norm else wdt))
 
     out = {
-        "embed": conv(np_tree["embed"], shapes["embed"], False),
-        "layers": {k: conv(np_tree["layers"][k], s, k in _NORMS)
+        "embed": conv("embed", np_tree["embed"], shapes["embed"], False),
+        "layers": {k: conv(f"layers/{k}", np_tree["layers"][k], s, k in _NORMS)
                    for k, s in shapes["layers"].items()},
-        "final_norm": conv(np_tree["final_norm"], shapes["final_norm"], True),
+        "final_norm": conv("final_norm", np_tree["final_norm"],
+                           shapes["final_norm"], True),
     }
     if "lm_head" in shapes:
-        out["lm_head"] = conv(np_tree["lm_head"], shapes["lm_head"], False)
+        out["lm_head"] = conv("lm_head", np_tree["lm_head"], shapes["lm_head"],
+                              False)
     return out
 
 
@@ -259,8 +282,10 @@ def _w_out(params: dict, cfg: LlamaConfig) -> torch.Tensor:
 
 def _embed(params: dict, cfg: LlamaConfig, tokens) -> torch.Tensor:
     """Embedding lookup from the table cast to the compute dtype (as JAX
-    casts it before its gather)."""
-    return params["embed"].to(cfg.compute_dtype)[tokens.long()]
+    casts it before its gather); on a mesh from a replicated table, as
+    JAX gathers it (ray_tpu/models/llama.py:374)."""
+    w = shard_constraint(params["embed"].to(cfg.compute_dtype), (None, None))
+    return w[tokens.long()]
 
 
 # --------------------------------------------------------------------------
@@ -273,9 +298,9 @@ def _qkv(cfg: LlamaConfig, p, h, sin, cos):
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.compute_dtype
     x = rms_norm(h, p["attn_norm"], cfg.rms_eps)
-    q = (x @ p["wq"].to(cdt)).reshape(b, t, hq, hd)
-    k = (x @ p["wk"].to(cdt)).reshape(b, t, hkv, hd)
-    v = (x @ p["wv"].to(cdt)).reshape(b, t, hkv, hd)
+    q = matmul(x, p["wq"].to(cdt)).reshape(b, t, hq, hd)
+    k = matmul(x, p["wk"].to(cdt)).reshape(b, t, hkv, hd)
+    v = matmul(x, p["wv"].to(cdt)).reshape(b, t, hkv, hd)
     return apply_rotary(q, sin, cos), apply_rotary(k, sin, cos), v
 
 
@@ -284,7 +309,7 @@ def moe_gates(cfg: LlamaConfig, router, x):
     softmax of ``x @ router`` with every prob below the k-th largest set
     to 0, renormalised. Probs that tie at the k-th value all survive, so
     a row may keep more than top_k entries."""
-    logits = x @ router.to(cfg.compute_dtype)  # [B, T, E]
+    logits = matmul(x, router.to(cfg.compute_dtype))  # [B, T, E]
     probs = torch.softmax(logits.float(), dim=-1)
     if cfg.top_k < cfg.n_experts:
         kth = torch.sort(probs, dim=-1).values[..., -cfg.top_k, None]
@@ -293,17 +318,20 @@ def moe_gates(cfg: LlamaConfig, router, x):
     return probs
 
 
-def _moe_mlp_dense(cfg: LlamaConfig, p, x):
+def _moe_mlp_dense(cfg: LlamaConfig, p, x, first_expert: int = 0):
     """Every expert computes every token; the gates weight the sum. The
     parity oracle of the capacity path: with no drops both compute the
     same weighted sum. gate and up are ``x @ W`` over the experts'
     weights laid side by side, one no-batch product (``aten.mm``) each,
     which the "dots" remat policies save as JAX's save its ``btd,edf``
-    einsums; the other products are batched and recomputed."""
+    einsums; the other products are batched and recomputed. The expert
+    weights may be a block of ``e`` experts from ``first_expert`` on (one
+    rank's under ep), whose share of the sum this returns."""
     cdt = cfg.compute_dtype
     b, t, d = x.shape
-    e, f = cfg.n_experts, cfg.d_ff
+    e, f = p["w_gate"].shape[0], cfg.d_ff
     gates = moe_gates(cfg, p["router"], x).to(cdt)  # [B, T, E]
+    gates = gates[..., first_expert:first_expert + e]
 
     def all_experts(w):  # "btd,edf->btef"
         return (x @ w.to(cdt).transpose(0, 1).reshape(d, e * f)).reshape(
@@ -343,7 +371,7 @@ def _capacity_slots(cfg: LlamaConfig, gates, capacity: int):
     return topv, topi, torch.stack(pos, dim=-1)
 
 
-def _moe_mlp_capacity(cfg: LlamaConfig, p, x):
+def _moe_mlp_capacity(cfg: LlamaConfig, p, x, first_expert: int = 0):
     """GShard top-k capacity routing: per batch row, each expert owns
     ``moe_capacity(cfg, T)`` token slots (``_capacity_slots``); one-hot
     dispatch and combine tensors make the layer dense products:
@@ -355,9 +383,13 @@ def _moe_mlp_capacity(cfg: LlamaConfig, p, x):
     A dropped choice gets an all-zero dispatch and combine row (where
     ``jax.nn.one_hot`` of an out-of-range slot gives zeros, the slot is
     clamped and the row masked). dispatch is built in the compute dtype,
-    combine in f32 and cast for the last product, as in JAX."""
+    combine in f32 and cast for the last product, as in JAX. The expert
+    weights may be a block of ``e`` experts from ``first_expert`` on (one
+    rank's under ep): the slots are assigned over all experts, and only
+    the block's buffers are filled and computed."""
     cdt = cfg.compute_dtype
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
+    e = p["w_gate"].shape[0]
     capacity = moe_capacity(cfg, x.shape[1])
     gates = moe_gates(cfg, p["router"], x)
     topv, topi, pos = _capacity_slots(cfg, gates, capacity)
@@ -366,7 +398,8 @@ def _moe_mlp_capacity(cfg: LlamaConfig, p, x):
     for j in range(k):
         oh_c = F.one_hot(pos[..., j].clamp(max=capacity - 1).long(),
                          capacity).to(cdt) * keep[..., j, None]
-        contrib = F.one_hot(topi[..., j], e).to(cdt)[..., None] * oh_c[..., None, :]
+        oh_e = F.one_hot(topi[..., j], cfg.n_experts).to(cdt)
+        contrib = oh_e[..., first_expert:first_expert + e, None] * oh_c[..., None, :]
         dispatch = dispatch + contrib
         combine = combine + contrib.float() * topv[..., j, None, None]
     xe = torch.einsum("btec,btd->becd", dispatch, x.to(cdt))
@@ -376,13 +409,56 @@ def _moe_mlp_capacity(cfg: LlamaConfig, p, x):
     return torch.einsum("btec,becd->btd", combine.to(cdt), ye)
 
 
+_MOE_IMPLS = {"dense": _moe_mlp_dense, "capacity": _moe_mlp_capacity}
+_MOE_WEIGHTS = ("router", "w_gate", "w_up", "w_down")
+
+
+def _moe_on_mesh(cfg: LlamaConfig, impl, p, x):
+    """The MoE MLP of DTensors, each rank on its local blocks: its batch
+    rows, whole (the sequence gathered over sp: a capacity slot is a
+    cumsum over the row), its experts (E split over ep) and its block of
+    d_ff (split over tp). No expert weight is gathered over ep or tp,
+    only over fsdp. The output is a pending sum over the ep and tp ranks
+    (each holds its experts' and its d_ff block's share)."""
+    x = shard_constraint(x, ("batch", None, "embed"))
+    w = {name: p[name] for name in _MOE_WEIGHTS}
+    kept = {"router": (), "w_gate": (0, 2), "w_up": (0, 2), "w_down": (0, 1)}
+    w_in = {name: tuple(pl if isinstance(pl, Shard) and pl.dim in kept[name]
+                        else Replicate() for pl in w[name].placements)
+            for name in _MOE_WEIGHTS}
+    x_in, out, d_router = [], [], []
+    for m, px in enumerate(x.placements):
+        batch = px == Shard(0)
+        split = w_in["w_gate"][m] != Replicate()  # experts or d_ff
+        x_in.append(Shard(0) if batch else Replicate())
+        out.append(Partial() if split else x_in[-1])
+        d_router.append(Partial() if batch or split else Replicate())
+    d_w = {name: tuple(Partial() if x_in[m] == Shard(0) else pl
+                       for m, pl in enumerate(w_in[name]))
+           for name in _MOE_WEIGHTS}
+    d_w["router"] = tuple(d_router)
+    mesh = x.device_mesh
+    first = local_slices(w["w_gate"].shape, mesh, w_in["w_gate"])[0].start
+
+    def local(x_, *weights):
+        return impl(cfg, dict(zip(_MOE_WEIGHTS, weights)), x_, first)
+
+    run = local_map(local, out_placements=(tuple(out),),
+                    in_placements=(tuple(x_in),) + tuple(w_in[n] for n in _MOE_WEIGHTS),
+                    in_grad_placements=(tuple(out),) + tuple(d_w[n] for n in _MOE_WEIGHTS),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(x, *(w[n] for n in _MOE_WEIGHTS))
+
+
 def _moe_mlp(cfg: LlamaConfig, p, x):
-    if cfg.moe_impl == "dense":
-        return _moe_mlp_dense(cfg, p, x)
-    if cfg.moe_impl == "capacity":
-        return _moe_mlp_capacity(cfg, p, x)
-    raise ValueError(
-        f"unknown moe_impl {cfg.moe_impl!r}; expected 'capacity' or 'dense'")
+    if cfg.moe_impl not in _MOE_IMPLS:
+        raise ValueError(
+            f"unknown moe_impl {cfg.moe_impl!r}; expected 'capacity' or 'dense'")
+    impl = _MOE_IMPLS[cfg.moe_impl]
+    if isinstance(x, DTensor):
+        return shard_constraint(_moe_on_mesh(cfg, impl, p, x),
+                                ("batch", "seq", "embed"))
+    return impl(cfg, p, x)
 
 
 def _attn_out_and_mlp(cfg: LlamaConfig, p, h, o):
@@ -392,22 +468,26 @@ def _attn_out_and_mlp(cfg: LlamaConfig, p, h, o):
     (mlp_gate, mlp_up)."""
     b, t, _ = h.shape
     cdt = cfg.compute_dtype
-    h = h + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cdt)
+    h = h + shard_constraint(
+        matmul(o.reshape(b, t, cfg.n_heads * cfg.head_dim), p["wo"].to(cdt)),
+        ("batch", "seq", "embed"))
     x = rms_norm(h, p["mlp_norm"], cfg.rms_eps)
     if cfg.n_experts > 0:
         return h + _moe_mlp(cfg, p, x)
     w_gate, w_up = p["w_gate"].to(cdt), p["w_up"].to(cdt)
     with checkpoint_name("mlp_gate"):
-        gate = x @ w_gate
+        gate = matmul(x, w_gate)
     with checkpoint_name("mlp_up"):
-        up = x @ w_up
-    y = (F.silu(gate) * up) @ p["w_down"].to(cdt)
-    return h + y
+        up = matmul(x, w_up)
+    y = matmul(F.silu(gate) * up, p["w_down"].to(cdt))
+    return h + shard_constraint(y, ("batch", "seq", "embed"))
 
 
 def _layer(cfg: LlamaConfig, h, p, sin, cos):
     """One pre-norm transformer block. h: [B, T, D] in compute dtype."""
     q, k, v = _qkv(cfg, p, h, sin, cos)
+    q = shard_constraint(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_constraint(k, ("batch", "seq", "kv_heads", "head_dim"))
     o = attention(q, k, v, causal=True, use_flash=cfg.use_flash)
     return _attn_out_and_mlp(cfg, p, h, o)
 
@@ -466,21 +546,34 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None):
     ``ops.attention`` (the CUDA flash kernels for CUDA tensors). When
     gradients are being recorded and ``cfg.remat`` is set, each layer runs
     under activation checkpointing with ``cfg.remat_policy``; remat
-    changes memory and time, never values."""
+    changes memory and time, never values. Under a mesh the params are
+    DTensors; tokens and positions every rank holds whole are placed by
+    the rules (the rotary tables of global positions split as the
+    sequence is)."""
     b, t = tokens.shape
+    mesh = current_mesh()
+    if mesh is not None and mesh_config(mesh).pp > 1:
+        raise NotImplementedError(
+            "pipeline stages (a mesh with pp > 1) are not ported yet: they "
+            "come with the pipelines slice (ROADMAP Queue 1 item 6)")
     dev = params["embed"].device
-    tokens = tokens.to(dev)
+    tokens = to_mesh(tokens.to(dev), ("batch", "seq"))
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
-    sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    # the tables of global positions, split on the mesh as the sequence is
+    rows = "batch" if positions.shape[0] > 1 else None
+    sin, cos = (to_mesh(x, (rows, "seq", None)) for x in rotary_embedding(
+        positions, cfg.head_dim, cfg.rope_theta))
     layer_fn = functools.partial(_layer, cfg)
     if cfg.remat and torch.is_grad_enabled():
         layer_fn = _remat_layer_fn(cfg)
     h = _embed(params, cfg, tokens)
+    h = shard_constraint(h, ("batch", "seq", "embed"))
     for p in _unbind_layers(params):
         h = layer_fn(h, p, sin, cos)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-    return h @ _w_out(params, cfg)
+    return shard_constraint(matmul(h, _w_out(params, cfg)),
+                            ("batch", "seq", "vocab"))
 
 
 def loss_fn(params, batch, cfg: LlamaConfig):
@@ -493,10 +586,11 @@ def loss_fn(params, batch, cfg: LlamaConfig):
         toks = batch["tokens"]
         inputs, targets = toks[:, :-1], toks[:, 1:]
         mask = None
-    logits = forward(params, inputs, cfg)
-    targets = targets.to(logits.device)
+    # on a mesh the loss takes whole vocab rows (gathered over tp)
+    logits = shard_constraint(forward(params, inputs, cfg), ("batch", "seq", None))
+    targets = to_mesh(targets.to(logits.device), ("batch", "seq"))
     if mask is not None:
-        mask = mask.to(logits.device)
+        mask = to_mesh(mask.to(logits.device), ("batch", "seq"))
     loss, n = softmax_cross_entropy(logits, targets, mask=mask)
     return loss, {"loss": loss, "tokens": n}
 

@@ -38,8 +38,12 @@ forward in the backward pass.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ray_tpu_torch.utils.checkpoint_names import checkpoint_name
 from ray_tpu_torch.utils.math import cdiv
@@ -386,11 +390,35 @@ torch.library.register_autograd("ray_tpu_torch::flash_fwd", _backward,
                                 setup_context=_setup_context)
 
 
+def _flash_attention_on_mesh(q, k, v, causal):
+    """Flash attention of DTensors: each rank runs the op on its local
+    block of batch rows and heads, over the whole sequence (the kernels'
+    end-aligned causal mask needs every key of a row), then takes its
+    block of q's sequence split again (a local slice). k and v get q's
+    split of batch and heads; the GQA map h // (Hq / Hkv) stays local
+    when Hkv divides evenly, which is checked."""
+    mesh = q.device_mesh
+    inner = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                  for p in q.placements)
+    heads_split = math.prod(mesh.size(i) for i, p in enumerate(inner)
+                            if p == Shard(2))
+    if k.shape[2] % heads_split:
+        raise ValueError(f"flash_attention: {k.shape[2]} kv heads do not split "
+                         f"over the {heads_split} ranks that split the heads")
+    run = local_map(functools.partial(flash_attention, causal=causal),
+                    out_placements=(inner,), in_placements=(inner,) * 3,
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(q, k, v).redistribute(mesh, q.placements)
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """Flash attention in the public layout [B, T, H, D] (as ops.attention),
     differentiable. The kernel-layout copies of q, k and v and the
     forward's (out, lse) carry the checkpoint names of the reference's
-    ``_layer`` (qkv_q/qkv_k/qkv_v, flash)."""
+    ``_layer`` (qkv_q/qkv_k/qkv_v, flash). DTensors run on their local
+    shards (``_flash_attention_on_mesh``)."""
+    if isinstance(q, DTensor):
+        return _flash_attention_on_mesh(q, k, v, causal)
     with checkpoint_name("qkv_q"):
         qt = q.transpose(1, 2).contiguous()
     with checkpoint_name("qkv_k"):

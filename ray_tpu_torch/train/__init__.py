@@ -1,15 +1,18 @@
-"""Training layer: the single-device train step and the fused optimizer.
+"""Training layer: the train step, on one device or a mesh, and the
+fused optimizer.
 
 - optim.py: ``fused_adamw`` with bf16 moments and stochastic rounding
-- step.py: ``TrainState``, ``init_train_state``, ``make_train_step``
+- step.py: ``TrainState``, ``batch_sharding``, ``init_train_state``,
+  ``make_train_step``
 
 The JAX package's train runtime (trainers, checkpoints, DCN) is ROADMAP
-Queue 1 item 9; nothing of it is imported here.
+Queue 1 item 5; nothing of it is imported here.
 """
 
 from ray_tpu_torch.train.optim import FusedAdamWState, fused_adamw  # noqa: F401
 from ray_tpu_torch.train.step import (  # noqa: F401
     TrainState,
+    batch_sharding,
     init_train_state,
     make_train_step,
 )

@@ -5,7 +5,10 @@ eps, weight_decay, mu_dtype) with optional bf16 moments, and the second
 moment stored in bf16 by stochastic rounding whose dither bits equal the
 JAX package's bit for bit. The JAX update is one XLA-fused pass per leaf
 (no Pallas kernel); here each leaf is updated IN PLACE (masters and
-moments), which is JAX's ``donate_state`` without the copy.
+moments), which is JAX's ``donate_state`` without the copy. DTensor
+leaves (a train state on a mesh) are updated on each rank's local
+blocks, the rounding of each element seeded by its index in the whole
+leaf, so a sharded update gives the one-device update's bits.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from ray_tpu_torch.parallel.sharding import local_slices
 from ray_tpu_torch.utils.trees import tree_leaves
 
 _M32 = 0xFFFFFFFF
@@ -33,7 +38,23 @@ class FusedAdamWState:
     nu: dict  # second moment
 
 
-def _stochastic_round_bf16(x32: torch.Tensor, key: int) -> torch.Tensor:
+def _flat_index(shape, block, device) -> torch.Tensor:
+    """int32 [block's shape]: each element's flat index in a contiguous
+    tensor of ``shape``, for the block ``block`` (a slice a dim) of it."""
+    idx = torch.zeros([s.stop - s.start for s in block], dtype=torch.int32,
+                      device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        view = [1] * len(shape)
+        view[d] = -1
+        idx += (torch.arange(block[d].start, block[d].stop, dtype=torch.int32,
+                             device=device) * stride).view(view)
+        stride *= shape[d]
+    return idx
+
+
+def _stochastic_round_bf16(x32: torch.Tensor, key: int,
+                           index: torch.Tensor | None = None) -> torch.Tensor:
     """f32 -> bf16 with stochastic rounding, bit-exact with the JAX
     package's ``_stochastic_round_bf16`` (optim.py:31-53).
 
@@ -45,15 +66,38 @@ def _stochastic_round_bf16(x32: torch.Tensor, key: int) -> torch.Tensor:
     uint32 result's bits; a right shift of an int32 copies the sign bit,
     so each logical shift masks the bits it brought in. The final
     arithmetic shift by 16 leaves the kept half as an int16 value.
-    Element indices must stay below 2**31."""
+    ``index`` holds each element's index in the whole leaf, for a block
+    of it (JAX's iota runs over the global array, so a shard rounds as
+    the whole leaf does); None: x32 is the whole leaf. Element indices
+    must stay below 2**31."""
     x32 = x32.contiguous()
     bits = x32.view(torch.int32)
-    h = torch.arange(x32.numel(), dtype=torch.int32, device=x32.device)
-    h = h.view(x32.shape).mul_(_i32(2654435761)).add_(_i32(int(key) & _M32))
+    if index is None:
+        h = torch.arange(x32.numel(), dtype=torch.int32, device=x32.device)
+        h = h.view(x32.shape)
+    else:
+        h = index.clone()
+    h = h.mul_(_i32(2654435761)).add_(_i32(int(key) & _M32))
     h = h.bitwise_xor_((h >> 15).bitwise_and_(0x1FFFF)).mul_(_i32(0x85EBCA6B))
     h = h.bitwise_xor_((h >> 13).bitwise_and_(0x7FFFF))
     rounded = h.bitwise_and_(0xFFFF).add_(bits)
     return (rounded >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def _local_blocks(leaves):
+    """(grad, mu, nu, param) of one leaf as tensors to update in place: the
+    leaves themselves, or, for DTensors, their local blocks, which must
+    lie alike (the step brings each gradient to its param's sharding)."""
+    if not isinstance(leaves[3], DTensor):
+        return leaves
+    p = leaves[3]
+    for x in leaves:
+        if not isinstance(x, DTensor) or x.device_mesh != p.device_mesh \
+                or tuple(x.placements) != tuple(p.placements):
+            raise ValueError("fused_adamw: a leaf's gradient, moments and "
+                             "param must be DTensors placed alike; got "
+                             f"{[getattr(y, 'placements', None) for y in leaves]}")
+    return tuple(x.to_local() for x in leaves)
 
 
 class FusedAdamW:
@@ -102,8 +146,8 @@ class FusedAdamW:
         sr = any(n.dtype == torch.bfloat16 for n in n_leaves)
         # per-leaf seeds from the step counter, by JAX's leaf index
         base = (count * 0x9E3779B9) & _M32
-        for i, (g, m, n, p) in enumerate(zip(g_leaves, m_leaves, n_leaves,
-                                             p_leaves)):
+        for i, leaves in enumerate(zip(g_leaves, m_leaves, n_leaves, p_leaves)):
+            g, m, n, p = _local_blocks(leaves)
             g32 = g.float()
             m32 = m.float() * b1 + g32 * (1.0 - b1)
             n32 = n.float() * b2 + g32.square() * (1.0 - b2)
@@ -113,7 +157,12 @@ class FusedAdamW:
             if n.dtype == torch.bfloat16 and sr:
                 # slow EMAs in bf16 need stochastic rounding or they freeze
                 key = (base + (i * 40503) % 2**16) & _M32
-                n.copy_(_stochastic_round_bf16(n32, key))
+                index = None
+                if isinstance(leaves[3], DTensor):
+                    pd = leaves[3]
+                    index = _flat_index(pd.shape, local_slices(
+                        pd.shape, pd.device_mesh, pd.placements), n.device)
+                n.copy_(_stochastic_round_bf16(n32, key, index))
             else:
                 n.copy_(n32)
             p.add_((-lr * upd).to(p.dtype))

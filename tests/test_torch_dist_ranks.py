@@ -1,0 +1,278 @@
+"""Rank-side halves of the port's multi-rank tests (defines no test).
+
+Each function runs in every rank of a world that ``launch.spawn`` starts
+(gloo, one process per rank) and returns that rank's results. Spawned
+ranks import this module by name to find the function, so it imports
+neither JAX nor ray_tpu: the JAX expectations are computed in the test
+process and passed in as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import traceback
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+
+from ray_tpu_torch import train
+from ray_tpu_torch.collective import mesh_ops
+from ray_tpu_torch.models import llama
+from ray_tpu_torch.ops import ring_attention, ulysses
+from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, use_mesh
+from ray_tpu_torch.parallel.sharding import local_slices
+from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
+
+
+def _guard(results: dict, name: str, fn):
+    """Run one case; a failure becomes the case's result, so that the
+    other cases still report."""
+    try:
+        results[name] = fn()
+    except Exception:  # reported by the case's own test
+        results[name] = {"error": traceback.format_exc()}
+
+
+def _local(x: torch.Tensor) -> np.ndarray:
+    return x.detach().full_tensor().numpy() if isinstance(x, DTensor) \
+        else x.detach().numpy()
+
+
+# --------------------------------------------------------------------------
+# The sharded train step (tests/test_torch_parallel_step.py)
+# --------------------------------------------------------------------------
+
+def _layout_cfg(layout: dict, **over) -> llama.LlamaConfig:
+    moe = dict(n_experts=4, top_k=2) if layout.get("ep", 1) > 1 else {}
+    return llama.LlamaConfig.tiny(n_layers=2, remat=False, **moe, **over)
+
+
+class _Recording(train.optim.FusedAdamW):
+    """fused_adamw(1e-3) that keeps the gradients the step hands it."""
+
+    def __init__(self):
+        base = train.fused_adamw(1e-3)
+        super().__init__(base.learning_rate, base.b1, base.b2, base.eps,
+                         base.weight_decay, base.mu_dtype, base.nu_dtype)
+        self.grads = None
+
+    def update(self, grads, state, params):
+        self.grads = tree_leaves(grads)
+        return super().update(grads, state, params)
+
+
+def _adamw_bits(params, grads) -> dict:
+    """Two sharded FusedAdamW updates of ``params`` (DTensors, updated in
+    place; bf16 moments, the second by stochastic rounding) on the same
+    gradients against the one-device update of the whole tensors: each
+    rank's blocks must equal the one-device update's bit for bit."""
+    opt = train.fused_adamw(1e-2, weight_decay=0.01, mu_dtype=torch.bfloat16,
+                            nu_dtype=torch.bfloat16)
+    # full_tensor() of a replicated DTensor is its local tensor itself
+    whole = tree_unflatten(params, [p.full_tensor().clone()
+                                    for p in tree_leaves(params)])
+    g_tree = tree_unflatten(params, list(grads))
+    g_whole = tree_unflatten(params, [g.full_tensor() for g in grads])
+    s_sh, s_one = opt.init(params), opt.init(whole)
+    for _ in range(2):
+        s_sh = opt.update(g_tree, s_sh, params)
+        s_one = opt.update(g_whole, s_one, whole)
+    unequal = []
+    for name, sharded, one in (("params", params, whole), ("mu", s_sh.mu, s_one.mu),
+                               ("nu", s_sh.nu, s_one.nu)):
+        for path, a, b in zip(tree_paths(sharded), tree_leaves(sharded),
+                              tree_leaves(one)):
+            block = b[local_slices(b.shape, a.device_mesh, a.placements)]
+            if not torch.equal(a.to_local(), block):
+                unequal.append(f"{name}/{path}")
+    return {"unequal": unequal, "nu_dtype": str(s_sh.nu["embed"].dtype)}
+
+
+def parallel_step_rank(rank, world, layouts, jax_params, tokens):
+    """For each layout (a MeshConfig's fields): the state from JAX's init
+    params (``jax_params[i]``, numpy); one sharded step's metrics, the
+    gradients it handed the optimizer (rank 0 returns them whole) and
+    the shapes its MoE layers saw locally; the local block of wq; the
+    sharded optimizer's bits on those gradients. Then the moment
+    shardings of test_parallel.py:82 and the pp > 1 refusal."""
+    out = {}
+    batch = {"inputs": torch.from_numpy(tokens[:, :-1].copy()),
+             "targets": torch.from_numpy(tokens[:, 1:].copy())}
+    for layout, np_params in zip(layouts, jax_params):
+        key = MeshConfig(**layout).describe()
+
+        def case(layout=layout, np_params=np_params):
+            mesh = build_mesh(MeshConfig(**layout))
+            cfg = _layout_cfg(layout)
+            opt = _Recording()
+            state, state_sh = train.init_train_state(
+                lambda dev, place: llama.from_jax_params(
+                    np_params, cfg, dev, master=True, place=place),
+                llama.param_logical_axes(cfg), opt, mesh)
+            res = {"wq_local": tuple(state.params["layers"]["wq"].to_local().shape),
+                   "wq_global": tuple(state.params["layers"]["wq"].shape)}
+            adamw_params = [DTensor.from_local(p.to_local().clone(), p.device_mesh,
+                                               p.placements, shape=p.shape,
+                                               stride=p.stride())
+                            for p in tree_leaves(state.params)]
+            seen = []
+            plain = llama._MOE_IMPLS["capacity"]
+
+            def recording(cfg_, p, x, first_expert=0):
+                seen.append({n: tuple(p[n].shape) for n in llama._MOE_WEIGHTS}
+                            | {"x": tuple(x.shape), "first": first_expert})
+                return plain(cfg_, p, x, first_expert)
+
+            step = train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg),
+                                         opt, mesh, state_sh)
+            llama._MOE_IMPLS["capacity"] = recording
+            try:
+                state, metrics = step(state, batch)
+            finally:
+                llama._MOE_IMPLS["capacity"] = plain
+            res["moe_local"] = seen
+            res["grad_placements_follow_params"] = all(
+                tuple(g.placements) == sh.placements
+                for g, sh in zip(opt.grads, tree_leaves(state_sh.params)))
+            whole = [_local(g) for g in opt.grads]  # a collective: every rank
+            if rank == 0:
+                res["grads"] = dict(zip(tree_paths(state.params), whole))
+            res["adamw"] = _adamw_bits(
+                tree_unflatten(state.params, adamw_params), opt.grads)
+            res["loss"] = float(metrics["loss"])
+            res["grad_norm"] = float(metrics["grad_norm"])
+            res["step"] = state.step
+            res["metric_types"] = sorted({type(v).__name__ for v in metrics.values()})
+            return res
+
+        _guard(out, key, case)
+
+    def moments():
+        mesh = build_mesh(MeshConfig(fsdp=4, tp=2))
+        cfg = llama.LlamaConfig.tiny(n_heads=4, n_kv_heads=4)
+        opt = train.fused_adamw(1e-3, mu_dtype=torch.bfloat16,
+                                nu_dtype=torch.bfloat16)
+        state, state_sh = train.init_train_state(
+            lambda dev, place: llama.init_params(
+                cfg, torch.Generator().manual_seed(0), dev, master=True,
+                place=place),
+            llama.param_logical_axes(cfg), opt, mesh)
+        lay, mu, nu = (state.params["layers"], state.opt_state.mu["layers"],
+                       state.opt_state.nu["layers"])
+        sh = state_sh.opt_state.mu["layers"]
+        return {name: {"param": str(lay[name].placements),
+                       "mu": str(mu[name].placements),
+                       "nu": str(nu[name].placements),
+                       "sharding": str(sh[name].placements)}
+                for name in ("wq", "wo")}
+
+    _guard(out, "moments", moments)
+
+    def pipeline_refused():
+        mesh = build_mesh(MeshConfig(pp=2, fsdp=4))
+        cfg = llama.LlamaConfig.tiny(n_layers=2)
+        params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                                   master=True)
+        try:
+            with use_mesh(mesh):
+                llama.loss_fn(params, batch, cfg)
+        except NotImplementedError as e:
+            return {"raised": str(e)}
+        return {"raised": None}
+
+    _guard(out, "pipeline", pipeline_refused)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Mesh collectives (tests/test_torch_mesh_ops.py)
+# --------------------------------------------------------------------------
+
+def _block(x: np.ndarray, coord, shape) -> np.ndarray:
+    """Device (i, j)'s block of a global [4a, 2b] array under P("x", "y")."""
+    a, b = x.shape[0] // shape[0], x.shape[1] // shape[1]
+    i, j = coord
+    return x[i * a:(i + 1) * a, j * b:(j + 1) * b]
+
+
+def mesh_ops_rank(rank, world, cases, inputs, weights):
+    """Each case (name, op, axis, kwargs) on this rank's block of
+    ``inputs[name]`` over a (4, 2) mesh named ("x", "y"): the output, and
+    for ppermute and all_to_all the gradient of sum(out * weights block)."""
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("x", "y"))
+    coord = mesh.get_coordinate()
+    out = {}
+    for name, op, axis, kw in cases:
+        def case(name=name, op=op, axis=axis, kw=kw):
+            x = torch.from_numpy(_block(inputs[name], coord, (4, 2)).copy())
+            fn = getattr(mesh_ops, op)
+            res = {"out": fn(x, mesh, axis, **kw).numpy()}
+            if name in weights:
+                xg = x.clone().requires_grad_()
+                y = fn(xg, mesh, axis, **kw)
+                w = torch.from_numpy(_block(weights[name], coord, (4, 2)).copy())
+                (y * w).sum().backward()
+                res["grad"] = xg.grad.numpy()
+                res["bare"] = fn(x, mesh, axis, wrap=False, **kw).numpy()
+            return res
+
+        _guard(out, name, case)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Ring and Ulysses attention (tests/test_torch_seq_parallel.py)
+# --------------------------------------------------------------------------
+
+def _rows(x: np.ndarray, n: int, i: int) -> torch.Tensor:
+    t = x.shape[1] // n
+    return torch.from_numpy(x[:, i * t:(i + 1) * t].copy())
+
+
+def seq_parallel_rank(rank, world, ring_cases, ulysses_cases):
+    """This rank's rows of ring_attention (on an sp = 8 mesh) and
+    ulysses_attention (on each case's mesh) from its rows of q, k, v;
+    with ``grad``, the gradients of sum(out**2) (Ulysses) or sum(out)
+    (ring) with respect to them."""
+    out = {}
+    for name, (q, k, v, causal, grad) in ring_cases.items():
+        def ring(q=q, k=k, v=v, causal=causal, grad=grad):
+            mesh = build_mesh(MeshConfig(sp=world))
+            i = mesh.get_local_rank("sp")
+            qkv = [_rows(a, world, i).requires_grad_(grad) for a in (q, k, v)]
+            o = ring_attention.ring_attention(*qkv, mesh, causal=causal)
+            res = {"out": o.detach().numpy()}
+            if grad:
+                o.sum().backward()
+                res["grads"] = [a.grad.numpy() for a in qkv]
+            return res
+
+        _guard(out, f"ring/{name}", ring)
+    for name, (layout, q, k, v, causal, grad) in ulysses_cases.items():
+        def uly(layout=layout, q=q, k=k, v=v, causal=causal, grad=grad):
+            mesh = build_mesh(MeshConfig(**layout))
+            sp = layout["sp"]
+            i = mesh.get_local_rank("sp")
+            qkv = [_rows(a, sp, i).requires_grad_(grad) for a in (q, k, v)]
+            with use_mesh(mesh):
+                o = ulysses.ulysses_attention(*qkv, causal=causal)
+            res = {"out": o.detach().numpy(), "sp_index": i}
+            if grad:
+                (o ** 2).sum().backward()
+                res["grads"] = [a.grad.numpy() for a in qkv]
+            return res
+
+        _guard(out, f"ulysses/{name}", uly)
+
+    def indivisible():
+        mesh = build_mesh(MeshConfig(sp=4, tp=2))
+        x = torch.zeros(1, 16, 6, 16)
+        try:
+            ulysses.ulysses_attention(x, x, x, mesh=mesh)
+        except ValueError as e:
+            return {"raised": str(e)}
+        return {"raised": None}
+
+    _guard(out, "ulysses/indivisible_heads", indivisible)
+    return out

@@ -17,7 +17,9 @@ FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+              # spawned ranks import it by name: it must import neither
+              ROOT / "tests" / "test_torch_dist_ranks.py"]
     return files
 
 
@@ -44,7 +46,15 @@ def test_port_files_exist():
             "ray_tpu_torch/serve/multiplex.py",
             "ray_tpu_torch/autoscaler/demand_scheduler.py",
             "ray_tpu_torch/train/optim.py",
-            "ray_tpu_torch/train/step.py"} <= names
+            "ray_tpu_torch/train/step.py",
+            "ray_tpu_torch/parallel/mesh.py",
+            "ray_tpu_torch/parallel/sharding.py",
+            "ray_tpu_torch/parallel/launch.py",
+            "ray_tpu_torch/collective/mesh_ops.py",
+            "ray_tpu_torch/ops/ring_attention.py",
+            "ray_tpu_torch/ops/ulysses.py",
+            "ray_tpu_torch/multichip.py",
+            "tests/test_torch_dist_ranks.py"} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
 
 
