@@ -33,7 +33,12 @@ kernels, and an f32 check of every gradient against the reference
 attention. Then the mesh path in a world of one rank (NCCL): the
 multi-device dry run, the Llama-1B step through the mesh forms of the
 train step (every leaf and activation a DTensor) held to the one-device
-step, and ring and Ulysses attention at sp = 1. Every bf16 head_dim-128
+step, ring and Ulysses attention at sp = 1, and the GPipe pipeline at pp
+= 1 over the 1B layer stack held to the plain layer loop. Then the
+pipeline slice's path: Llama-1B as a two-stage MPMD pipeline (a thread
+and a CUDA stream per stage, 1F1B, 4 microbatches of B1 x T2048, 3 SGD
+steps) held to the sequential one-device run of the same steps. Every
+bf16 head_dim-128
 flash call on those paths must go
 through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
 past 8192 keys flash_bwd_dq_sm90 + flash_bwd_dkv_sm90), which the launch
@@ -66,8 +71,13 @@ from ray_tpu_torch import _kernels, multichip, train
 from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import ring_attention, ulysses
-from ray_tpu_torch.parallel import launch
-from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from ray_tpu_torch.ops.losses import softmax_cross_entropy
+from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.rope import rotary_embedding
+from ray_tpu_torch.parallel import (MpmdPipeline, StageSpec, launch,
+                                    pipeline_apply, pipeline_stages)
+from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, use_mesh
+from ray_tpu_torch.parallel.pipeline_runtime import InProcessPipelineRuntime
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve import llm_pool
 from ray_tpu_torch.serve import runtime as serve_runtime
@@ -2339,14 +2349,15 @@ def phase_grad_exactness_f32():
 def phase_mesh_dryrun_card():
     """ray_tpu_torch.multichip.dryrun_multichip(1): one sharded train step
     of the tiny dry-run model in a world of one rank (a spawned process,
-    NCCL, this card). Its rank prints the dryrun_multichip ok line."""
+    NCCL, this card). n = 1 is odd, so only the first layout runs, as in
+    JAX. Its rank prints the dryrun_multichip ok line."""
     t0 = time.perf_counter()
-    loss = multichip.dryrun_multichip(1)
-    ok = bool(np.isfinite(loss))
+    losses = multichip.dryrun_multichip(1)
+    ok = len(losses) == 1 and bool(np.all(np.isfinite(losses)))
     emit({"phase": "mesh_dryrun_card", "world": 1, "backend": "nccl",
-          "loss": loss, "seconds": time.perf_counter() - t0, "ok": ok})
+          "losses": losses, "seconds": time.perf_counter() - t0, "ok": ok})
     if not ok:
-        raise AssertionError(f"mesh dry run: loss {loss}")
+        raise AssertionError(f"mesh dry run: losses {losses}")
 
 
 def mesh_train_step(cfg, mesh):
@@ -2491,6 +2502,249 @@ def phase_seq_parallel_card():
     if not ok:
         raise AssertionError(f"seq_parallel_card: errors {err}, launches "
                              f"{counts}")
+    return counts
+
+
+def phase_pipeline_gpipe_card():
+    """pipeline_apply in a world of one rank (NCCL, pp = 1) over the 1B
+    layer stack (bf16) on one B1 x T2048 batch, against the plain loop
+    over the layers on the same input: at one stage the function is that
+    loop, so the two must be bit-equal, and the 22 layers launch 22
+    flash_fwd_sm90. GPipe at pp > 1 needs one card a rank (NCCL) and ran
+    only over gloo on the CPU. Returns the pipeline call's launches."""
+    cfg = train_config("1b", "flash_qkv")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 800)
+    params = llama.init_params(cfg, g, device="cuda")
+    toks = torch.from_numpy(np.random.RandomState(SEED + 800).randint(
+        0, cfg.vocab_size, (1, 2048))).cuda()
+    sin, cos = rotary_embedding(torch.arange(2048, dtype=torch.int32,
+                                             device="cuda")[None, :],
+                                cfg.head_dim, cfg.rope_theta)
+
+    def layer(h, p):
+        return llama._layer(cfg, h, p, sin, cos)
+
+    with torch.no_grad():
+        h = llama._embed(params, cfg, toks)
+        want = h
+        for p in llama._unbind_layers(params):
+            want = layer(want, p)
+        launch.init_process(0, 1, "cuda")
+        try:
+            mesh = build_mesh(MeshConfig())
+            fa.reset_launch_count()
+            with use_mesh(mesh):
+                stages = pipeline_stages()
+                got = pipeline_apply(layer, params["layers"], h,
+                                     num_microbatches=1)
+            counts = fa.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    diff = float((got.float() - want.float()).abs().max())
+    equal = bool(torch.equal(got, want))
+    ok = stages == 1 and equal and counts == expected(flash_fwd_sm90=cfg.n_layers)
+    emit({"phase": "pipeline_gpipe_card", "world": 1, "pp": stages,
+          "shape": [1, 2048, cfg.d_model], "layers": cfg.n_layers,
+          "max_abs_diff_vs_layer_loop": diff, "bit_equal": equal,
+          "launches": counts,
+          "pp_gt_1": "run only on the CPU over gloo (tests/test_torch_pipeline.py"
+                     ", tests/test_torch_multichip.py): NCCL takes one card a "
+                     "rank and this machine has one",
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"pipeline_gpipe_card: pp={stages}, diff {diff}, "
+                             f"launches {counts}")
+    del params, got, want, h
+    torch.cuda.empty_cache()
+    return counts
+
+
+MPMD_M, MPMD_STEPS, MPMD_LR, MPMD_SPLIT = 4, 3, 1e-4, 11
+
+
+def mpmd_data(step, m, vocab=32128, seq=2048):
+    """Microbatch m of step `step`: seeded tokens [1, seq + 1] as (inputs,
+    targets), host numpy."""
+    toks = np.random.RandomState(SEED + 900 + 10 * step + m).randint(
+        0, vocab, (1, seq + 1)).astype(np.int64)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _fresh(params):
+    """New leaves of ``params`` that require grad (the stage's graph)."""
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    return leaves, tree_unflatten(params, leaves)
+
+
+def mpmd_llama_stages(cfg, full, split):
+    """The pipeline's user code: two StageSpecs over Llama's blocks, on the
+    card. Stage 0 holds the embedding and layers [0, split), stage 1 the
+    rest, the final norm, the head and the loss. The boundary carries the
+    bf16 hidden state as f32 host numpy (exact both ways); each stage's
+    saved value keeps its autograd graph."""
+    cdt, dev = cfg.compute_dtype, full["embed"].device
+    layer_fn = llama._remat_layer_fn(cfg)
+    trees = ({"embed": full["embed"].clone(),
+              "layers": {k: v[:split].clone() for k, v in full["layers"].items()}},
+             {"layers": {k: v[split:].clone() for k, v in full["layers"].items()},
+              "final_norm": full["final_norm"].clone(),
+              "lm_head": full["lm_head"].clone()})
+
+    def layers(p, h):
+        sin, cos = rotary_embedding(torch.arange(
+            h.shape[1], dtype=torch.int32, device=dev)[None, :],
+            cfg.head_dim, cfg.rope_theta)
+        for lp in llama._unbind_layers(p):
+            h = layer_fn(h, lp, sin, cos)
+        return h
+
+    def forward0(params, x):
+        leaves, p = _fresh(params)
+        h = layers(p, llama._embed(p, cfg, torch.from_numpy(x).to(dev)))
+        return h.detach().float().cpu().numpy(), (leaves, h)
+
+    def backward0(params, saved, dy):
+        leaves, h = saved
+        grads = torch.autograd.grad(h, leaves, torch.from_numpy(dy).to(dev, cdt))
+        return None, tree_unflatten(params, list(grads))
+
+    def forward1(params, x):
+        leaves, p = _fresh(params)
+        h_in = torch.from_numpy(x).to(dev, cdt).requires_grad_()
+        h = rms_norm(layers(p, h_in), p["final_norm"], cfg.rms_eps)
+        logits = h @ p["lm_head"].to(cdt)
+        return logits, (leaves, h_in, logits)
+
+    def loss1(params, y, target):
+        loss, _ = softmax_cross_entropy(y, torch.from_numpy(target).to(dev))
+        dy, = torch.autograd.grad(loss, y)
+        return float(loss.detach()), dy
+
+    def backward1(params, saved, dy):
+        leaves, h_in, logits = saved
+        grads = torch.autograd.grad(logits, [h_in] + leaves, dy)
+        return (grads[0].float().cpu().numpy(),
+                tree_unflatten(params, list(grads[1:])))
+
+    return [StageSpec(1, lambda c: trees[0], forward0, backward0),
+            StageSpec(1, lambda c: trees[1], forward1, backward1, loss1)]
+
+
+def mpmd_reference(cfg, full, data_fn=mpmd_data):
+    """The sequential one-device run of the pipeline's steps: llama.loss_fn
+    per microbatch, gradients summed in ascending microbatch order, times
+    1/M, the same SGD update. Returns (mean losses, step ms, params)."""
+    params, losses, step_ms = full, [], []
+    dev = full["embed"].device
+    for step in range(MPMD_STEPS):
+        t0 = time.perf_counter()
+        leaves, p = _fresh(params)
+        acc, ls = None, []
+        for m in range(MPMD_M):
+            x, t = data_fn(step, m)
+            loss, _ = llama.loss_fn(p, {"inputs": torch.from_numpy(x).to(dev),
+                                        "targets": torch.from_numpy(t).to(dev)},
+                                    cfg)
+            g = torch.autograd.grad(loss, leaves)
+            acc = list(g) if acc is None else [a + b for a, b in zip(acc, g)]
+            ls.append(float(loss.detach()))
+        with torch.no_grad():
+            params = tree_unflatten(params, [
+                (x - MPMD_LR * (g * (1.0 / MPMD_M))).to(x.dtype)
+                for x, g in zip(tree_leaves(params), acc)])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(sum(ls) / len(ls))
+    return losses, step_ms, params
+
+
+class SpanLog:
+    """The pipeline's spans, kept."""
+
+    def __init__(self):
+        self.spans = []
+        self.lock = threading.Lock()
+
+    def record(self, cat, name, t0, t1, attrs=None):
+        with self.lock:
+            self.spans.append((name, t0, t1, dict(attrs or {})))
+
+
+def phase_pipeline_mpmd_1b():
+    """The slice's path at full width: Llama-1B (train_1b's configuration:
+    bf16 compute, f32 params, remat flash_qkv) as a two-stage MPMD pipeline
+    (MpmdPipeline on InProcessPipelineRuntime: a thread and a CUDA stream
+    per stage, both on this card; stage 0 the embedding and layers 0-10,
+    stage 1 layers 11-21, the final norm, the head and the loss), 1F1B, M
+    = 4 microbatches of B1 x T2048 a step, 3 steps of SGD at lr 1e-4.
+    Held against the sequential one-device run of the same steps (the
+    losses within rel 1e-3; the largest param difference printed: the
+    fused backward adds dq by atomics, so bits differ); every step
+    launches 88 flash_fwd_sm90 and 88 flash_bwd_fused_sm90 (22 layers x 4
+    microbatches); no heal, no gang restart. Prints the step time beside
+    the reference's, each stage's measured bubble beside the analytic
+    (S-1)/(M+S-1), the boundary bytes a step and the peak memory."""
+    cfg = train_config("1b", "flash_qkv")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 900)
+    full = llama.init_params(cfg, g, device="cuda", master=True)
+    spans = SpanLog()
+    runtime = InProcessPipelineRuntime(spans)
+    pipe = MpmdPipeline(mpmd_llama_stages(cfg, full, MPMD_SPLIT),
+                        data_fn=mpmd_data, num_steps=MPMD_STEPS,
+                        microbatches=MPMD_M, schedule="1f1b", lr=MPMD_LR,
+                        return_params=True, runtime=runtime, poll_s=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    res = pipe.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_spans = {s: [(t1 - t0_) * 1e3 for name, t0_, t1, a in spans.spans
+                      if name == "pipeline.step" and a["stage"] == s]
+                  for s in (0, 1)}
+    got = [x for tree in res.final_params for x in tree_leaves(tree)]
+    res.final_params = None
+    ref_losses, ref_ms, ref_params = mpmd_reference(cfg, full)
+    want = [x for tree in (
+        {"embed": ref_params["embed"],
+         "layers": {k: v[:MPMD_SPLIT] for k, v in ref_params["layers"].items()}},
+        {"layers": {k: v[MPMD_SPLIT:] for k, v in ref_params["layers"].items()},
+         "final_norm": ref_params["final_norm"], "lm_head": ref_params["lm_head"]})
+        for x in tree_leaves(tree)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, ref_losses)]
+    per_step = expected(flash_fwd_sm90=cfg.n_layers * MPMD_M,
+                        flash_bwd_fused_sm90=cfg.n_layers * MPMD_M)
+    total = {k: MPMD_STEPS * v for k, v in per_step.items()}
+    analytic = (2 - 1) / (MPMD_M + 2 - 1)
+    ok = (len(res.losses) == MPMD_STEPS and all(np.isfinite(res.losses))
+          and max(rel) <= 1e-3 and counts == total and res.heals == 0
+          and res.gang_restarts == 0)
+    emit({"phase": "pipeline_mpmd_1b", "stages": 2, "split": [MPMD_SPLIT, 22],
+          "schedule": "1f1b", "microbatches": MPMD_M, "microbatch": [1, 2048],
+          "steps": MPMD_STEPS, "lr": MPMD_LR, "losses": res.losses,
+          "reference_losses": ref_losses, "loss_rel_diff": rel,
+          "loss_rel_tol": 1e-3, "max_param_diff_after_3_steps": diff,
+          "launches": counts, "expected_launches": total,
+          "heals": res.heals, "gang_restarts": res.gang_restarts,
+          "fit_seconds": fit_s, "stage_step_ms": step_spans,
+          "step_ms": float(np.mean(step_spans[0][1:])),
+          "reference_step_ms": ref_ms,
+          "reference_step_ms_mean": float(np.mean(ref_ms[1:])),
+          "bubble_by_stage": res.bubble_by_stage,
+          "bubble_analytic": analytic,
+          "boundary_bytes_per_step": runtime.bytes_sent / MPMD_STEPS,
+          "max_allocated_gb": peak_gb, "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"pipeline_mpmd_1b: losses {res.losses} against "
+                             f"{ref_losses}, launches {counts} (expected "
+                             f"{total}), heals {res.heals}")
+    del full, ref_params, got, want
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2702,6 +2956,8 @@ def main() -> None:
     by_path["train_1b_mesh"] = phase_train_1b_mesh(
         expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b))
     by_path["seq_parallel_card"] = phase_seq_parallel_card()
+    by_path["pipeline_gpipe_card"] = phase_pipeline_gpipe_card()
+    by_path["pipeline_mpmd_1b"] = phase_pipeline_mpmd_1b()
     phase_profile("profile_train_350m", train_config("350m", "dots_flash_qkv_mlp"),
                   8, 2048)
     phase_profile("profile_train_long_context", long_cfg, 1, 16384, steps=5)

@@ -24,10 +24,11 @@ On a device mesh (params that are DTensors, under ``parallel.use_mesh``)
 the model makes JAX's ``shard_constraint`` calls at the same points, and
 each weight product, the attention and the MoE MLP run on every rank's
 local blocks (``parallel.sharding.matmul``, ``ops.flash_attention``,
-``_moe_on_mesh``: each ep rank computes only its own experts). Pipeline
-stages over pp are not ported yet (ROADMAP Queue 1 item 6): ``forward``
-raises on a mesh with pp > 1, and ``pipeline_microbatches`` is accepted
-and, as in JAX on a mesh without a pp axis, has no effect.
+``_moe_on_mesh``: each ep rank computes only its own experts). On a mesh
+with pp > 1 the layer stack runs as a GPipe pipeline over pp
+(``parallel.pipeline.pipeline_apply``) in ``pipeline_microbatches``
+microbatches (0: the largest divisor of the batch that is at most 4 x pp,
+as in JAX).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from ray_tpu_torch.ops.attention import _repeat_kv, attention
 from ray_tpu_torch.ops.losses import softmax_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rotary, rotary_embedding
-from ray_tpu_torch.parallel.mesh import current_mesh, mesh_config
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_stages
 from ray_tpu_torch.parallel.sharding import (local_slices, matmul,
                                              shard_constraint, to_mesh)
 from ray_tpu_torch.utils.checkpoint_names import checkpoint_name, current_name
@@ -84,7 +85,7 @@ class LlamaConfig:
     top_k: int = 2
     moe_impl: str = "capacity"
     capacity_factor: float = 1.25
-    pipeline_microbatches: int = 0  # GPipe microbatches: no effect here
+    pipeline_microbatches: int = 0  # GPipe microbatches on a pp mesh (0: auto)
 
     @property
     def head_dim(self) -> int:
@@ -549,28 +550,34 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None):
     changes memory and time, never values. Under a mesh the params are
     DTensors; tokens and positions every rank holds whole are placed by
     the rules (the rotary tables of global positions split as the
-    sequence is)."""
+    sequence is). On a mesh with pp > 1 the layers run as a GPipe
+    pipeline over pp; each stage places the tables on its own submesh."""
     b, t = tokens.shape
-    mesh = current_mesh()
-    if mesh is not None and mesh_config(mesh).pp > 1:
-        raise NotImplementedError(
-            "pipeline stages (a mesh with pp > 1) are not ported yet: they "
-            "come with the pipelines slice (ROADMAP Queue 1 item 6)")
     dev = params["embed"].device
     tokens = to_mesh(tokens.to(dev), ("batch", "seq"))
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     # the tables of global positions, split on the mesh as the sequence is
-    rows = "batch" if positions.shape[0] > 1 else None
-    sin, cos = (to_mesh(x, (rows, "seq", None)) for x in rotary_embedding(
-        positions, cfg.head_dim, cfg.rope_theta))
+    table_axes = ("batch" if positions.shape[0] > 1 else None, "seq", None)
+    sin, cos = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     layer_fn = functools.partial(_layer, cfg)
     if cfg.remat and torch.is_grad_enabled():
         layer_fn = _remat_layer_fn(cfg)
     h = _embed(params, cfg, tokens)
     h = shard_constraint(h, ("batch", "seq", "embed"))
-    for p in _unbind_layers(params):
-        h = layer_fn(h, p, sin, cos)
+    pp = pipeline_stages()
+    if pp > 1:
+        mb = cfg.pipeline_microbatches
+        if not mb:  # auto: largest divisor of the batch <= 4 stages' worth
+            mb = max(d for d in range(1, min(b, 4 * pp) + 1) if b % d == 0)
+        h = pipeline_apply(
+            lambda c, p: layer_fn(c, p, to_mesh(sin, table_axes),
+                                  to_mesh(cos, table_axes)),
+            params["layers"], h, num_microbatches=mb)
+    else:
+        sin, cos = to_mesh(sin, table_axes), to_mesh(cos, table_axes)
+        for p in _unbind_layers(params):
+            h = layer_fn(h, p, sin, cos)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return shard_constraint(matmul(h, _w_out(params, cfg)),
                             ("batch", "seq", "vocab"))

@@ -1,17 +1,18 @@
-"""Multi-device dry run: one sharded train step over an n-rank mesh.
+"""Multi-device dry run: sharded train steps over n-rank meshes.
 
     python -m ray_tpu_torch.multichip N [--device cpu]
 
-Mirrors the first layout of the JAX package's ``dryrun_multichip``
-(``__graft_entry__.py:60-165``): ``n`` factors into tp, sp, ep and fsdp
-(powers of two) and dp (the odd rest), and one step of the sharded train
-step runs on a tiny Llama (vocab 256, d 64, 2 layers, 4/2 heads, d_ff
-128, f32; 4 experts, top-2, when ep > 1) with ``fused_adamw(1e-3)``.
+Mirrors the JAX package's ``dryrun_multichip`` (``__graft_entry__.py:60-165``):
+two mesh layouts cover every parallelism axis. First ``n`` factors into
+tp, sp, ep and fsdp (powers of two) and dp (the odd rest); then, for even
+``n``, a two-stage GPipe pipeline over pp with fsdp and dp for the rest.
+Each layout takes one step of the sharded train step on a tiny Llama
+(vocab 256, d 64, 2 layers, 4/2 heads, d_ff 128, f32; 4 experts, top-2,
+when ep > 1; 2 microbatches when pp > 1) with ``fused_adamw(1e-3)``.
 Each rank is one process on one device (``parallel/launch.py``): CUDA
-with NCCL unless ``--device cpu`` (gloo). Rank 0 prints ``dryrun_multichip
-ok: mesh=... loss=... step=1`` once every rank has the same loss. The
-second JAX layout, a GPipe pipeline over pp, comes with the pipelines
-slice (ROADMAP Queue 1 item 6).
+with NCCL unless ``--device cpu`` (gloo); both layouts run in one world.
+Rank 0 prints ``dryrun_multichip ok: mesh=... loss=... step=1`` for each
+layout once every rank has the same loss.
 """
 
 from __future__ import annotations
@@ -49,40 +50,67 @@ def dryrun_mesh_config(n: int) -> MeshConfig:
     return MeshConfig(dp=rem, fsdp=fsdp, ep=ep, sp=sp, tp=tp)
 
 
+def dryrun_layouts(n: int) -> list[MeshConfig]:
+    """JAX's layouts for n devices: ``dryrun_mesh_config(n)``, then, for
+    even n, pp=2 with a factor of 2 to fsdp where the rest is even and the
+    remainder to dp."""
+    layouts = [dryrun_mesh_config(n)]
+    if n % 2 == 0:
+        rem = n // 2
+        fsdp = 2 if rem % 2 == 0 else 1
+        layouts.append(MeshConfig(dp=rem // fsdp, pp=2, fsdp=fsdp))
+    return layouts
+
+
 def dryrun_config(mcfg: MeshConfig) -> llama.LlamaConfig:
-    """The dry run's model: MoE when the mesh has an ep axis."""
+    """The dry run's model: MoE when the mesh has an ep axis, GPipe
+    microbatches when it has a pp axis."""
     return llama.LlamaConfig.tiny(vocab_size=256, d_model=64, n_layers=2,
                                   n_heads=4, n_kv_heads=2, d_ff=128,
                                   dtype="float32",
-                                  n_experts=4 if mcfg.ep > 1 else 0, top_k=2)
+                                  n_experts=4 if mcfg.ep > 1 else 0, top_k=2,
+                                  pipeline_microbatches=2 if mcfg.pp > 1 else 0)
 
 
-def dryrun_batch(mcfg: MeshConfig, vocab: int) -> dict:
-    """[2 x dp x fsdp, SEQ + 1] tokens from seed 1, as inputs/targets."""
-    toks = np.random.RandomState(1).randint(
-        0, vocab, (2 * mcfg.dp * mcfg.fsdp, SEQ + 1))
-    toks = torch.from_numpy(toks)
+def dryrun_batch_size(mcfg: MeshConfig) -> int:
+    """2 rows per dp x fsdp rank; at least 4 on a pp mesh, so that the
+    batch splits into the 2 microbatches."""
+    rows = 2 * mcfg.dp * mcfg.fsdp
+    return max(rows, 4) if mcfg.pp > 1 else rows
+
+
+def dryrun_batch(mcfg: MeshConfig, vocab: int, tokens=None) -> dict:
+    """``tokens`` [B, SEQ + 1] (default: from seed 1) as inputs/targets."""
+    if tokens is None:
+        tokens = np.random.RandomState(1).randint(
+            0, vocab, (dryrun_batch_size(mcfg), SEQ + 1))
+    toks = torch.from_numpy(np.asarray(tokens, np.int64))
     return {"inputs": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
 
 
-def dryrun_params(cfg, device, place=None):
-    """The dry run's f32 masters, from seed 0 on the CPU generator."""
+def dryrun_params(cfg, device, place=None, jax_params=None):
+    """The dry run's f32 masters: from seed 0 on the CPU generator, or
+    converted from the JAX package's tree (numpy leaves)."""
     kw = {} if place is None else {"place": place}
+    if jax_params is not None:
+        return llama.from_jax_params(jax_params, cfg, device, master=True, **kw)
     return llama.init_params(cfg, torch.Generator().manual_seed(0), device,
                              master=True, **kw)
 
 
-def _dryrun_rank(rank: int, world: int, mcfg: MeshConfig) -> float:
+def _dryrun_one(rank: int, world: int, mcfg: MeshConfig, inputs) -> float:
     mesh = build_mesh(mcfg)
     cfg = dryrun_config(mcfg)
+    jax_params, tokens = inputs or (None, None)
     opt = train.fused_adamw(1e-3)
     state, state_sh = train.init_train_state(
-        lambda dev, place: dryrun_params(cfg, dev, place),
+        lambda dev, place: dryrun_params(cfg, dev, place, jax_params),
         llama.param_logical_axes(cfg), opt, mesh)
     step = train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt,
                                  mesh, state_sh)
     dev = state.params["embed"].device
-    batch = {k: v.to(dev) for k, v in dryrun_batch(mcfg, cfg.vocab_size).items()}
+    batch = {k: v.to(dev)
+             for k, v in dryrun_batch(mcfg, cfg.vocab_size, tokens).items()}
     state, metrics = step(state, batch)
     loss = float(metrics["loss"])
     losses = [None] * world
@@ -95,12 +123,25 @@ def _dryrun_rank(rank: int, world: int, mcfg: MeshConfig) -> float:
     return loss
 
 
-def dryrun_multichip(n_devices: int, *, device=None) -> float:
-    """One sharded train step over ``n_devices`` ranks (``launch.spawn``:
-    CUDA with NCCL by default, raising if the host has fewer cards;
-    ``device="cpu"`` for gloo). Returns the step's loss."""
-    mcfg = dryrun_mesh_config(n_devices)
-    return launch.spawn(_dryrun_rank, n_devices, mcfg, device=device)[0]
+def _dryrun_rank(rank: int, world: int, layouts, inputs) -> list[float]:
+    return [_dryrun_one(rank, world, mcfg, inp)
+            for mcfg, inp in zip(layouts, inputs)]
+
+
+def dryrun_multichip(n_devices: int, *, device=None, inputs=None) -> list[float]:
+    """One sharded train step over ``n_devices`` ranks for each layout of
+    ``dryrun_layouts`` (``launch.spawn``: CUDA with NCCL by default,
+    raising if the host has fewer cards; ``device="cpu"`` for gloo).
+    ``inputs``, one per layout, is (the JAX package's init params as a
+    numpy tree, tokens [B, SEQ + 1]) to run in place of the seeded ones,
+    as a test holds each layout to the JAX dry run. Returns each layout's
+    step-1 loss."""
+    layouts = dryrun_layouts(n_devices)
+    inputs = list(inputs) if inputs is not None else [None] * len(layouts)
+    if len(inputs) != len(layouts):
+        raise ValueError(f"{len(inputs)} inputs for {len(layouts)} layouts")
+    return launch.spawn(_dryrun_rank, n_devices, layouts, inputs,
+                        device=device)[0]
 
 
 def main() -> None:

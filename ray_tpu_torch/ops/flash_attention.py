@@ -40,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -68,6 +69,9 @@ SM90_HEAD_DIM = 128
 TMA_ALIGN = 16
 
 _launches = {name: 0 for name in _LIBRARY}
+# stage threads of an MPMD pipeline, and the autograd engine's device
+# thread, launch side by side
+_launches_lock = threading.Lock()
 
 
 def launch_count() -> int:
@@ -248,7 +252,8 @@ def _call(name, args, shapes):
         rc = fn(*raw, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc} ({shapes})")
-    _launches[name] += 1
+    with _launches_lock:
+        _launches[name] += 1
 
 
 def _dims(q, k, causal, variant):

@@ -122,14 +122,17 @@ def active_mesh(mesh: DeviceMesh) -> DeviceMesh:
     DTensor weighs every strategy of an op on every mesh dim, size-1 dims
     too, so its work grows as a power of the dim count: the first matmul
     of a shape took ~3 s on six dims of size 1 and ~10 ms on one or two
-    (torch 2.13 on the CPU)."""
-    return mesh[active_axes(mesh)]
+    (torch 2.13 on the CPU). A mesh whose every dim is active is its own
+    active mesh (a submesh cannot be sliced again)."""
+    axes = active_axes(mesh)
+    return mesh if axes == tuple(mesh.mesh_dim_names) else mesh[axes]
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: DeviceMesh):
-    """Install ``mesh`` as the ambient mesh for the block."""
-    token = _ambient.set((mesh, active_mesh(mesh)))
+def use_mesh(mesh: DeviceMesh | None):
+    """Install ``mesh`` as the ambient mesh for the block (None: no mesh,
+    as inside a pipeline stage whose only active axis is pp)."""
+    token = _ambient.set(None if mesh is None else (mesh, active_mesh(mesh)))
     try:
         yield mesh
     finally:

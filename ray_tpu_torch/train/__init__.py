@@ -4,9 +4,12 @@ fused optimizer.
 - optim.py: ``fused_adamw`` with bf16 moments and stochastic rounding
 - step.py: ``TrainState``, ``batch_sharding``, ``init_train_state``,
   ``make_train_step``
+- checkpoint.py: dict checkpoints with crc32 integrity (the MPMD
+  pipeline's stage checkpoints), in the JAX package's format
 
-The JAX package's train runtime (trainers, checkpoints, DCN) is ROADMAP
-Queue 1 item 5; nothing of it is imported here.
+The rest of the JAX package's train runtime (trainers, sharded
+checkpoints, DCN) is ROADMAP Queue 1 item 5; nothing of it is imported
+here.
 """
 
 from ray_tpu_torch.train.optim import FusedAdamWState, fused_adamw  # noqa: F401

@@ -5,9 +5,10 @@ Mirrors ray_tpu/train/step.py (``TrainState``, ``batch_sharding``,
 state is a DTensor placed by the logical rules (``parallel/sharding.py``)
 and the model's ``shard_constraint`` calls place the activations, where
 JAX jits the step with NamedShardings and GSPMD inserts the collectives:
-one code path covers dp, fsdp, ep, sp and tp by changing the mesh and the
-rules only. Pipeline stages (pp > 1) are the pipelines slice (ROADMAP
-Queue 1 item 6). Without a mesh the state is plain tensors on one device.
+one code path covers dp, pp, fsdp, ep, sp and tp by changing the mesh and
+the rules only (on pp the layer stack is split over the stages and the
+model runs it as a GPipe pipeline, ``parallel/pipeline.py``). Without a
+mesh the state is plain tensors on one device.
 """
 
 from __future__ import annotations

@@ -36,3 +36,14 @@ def tree_unflatten(like, leaves) -> dict:
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (nested dicts, lists and tuples)
+    and the matching leaves of ``rest``; the result has ``tree``'s shape."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
+    return fn(tree, *rest)

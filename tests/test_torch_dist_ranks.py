@@ -14,14 +14,16 @@ import traceback
 import numpy as np
 import torch
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch import train
 from ray_tpu_torch.collective import mesh_ops
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import ring_attention, ulysses
-from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, use_mesh
-from ray_tpu_torch.parallel.sharding import local_slices
+from ray_tpu_torch.parallel.mesh import (MeshConfig, active_axes, active_mesh,
+                                         build_mesh, use_mesh)
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
+from ray_tpu_torch.parallel.sharding import NamedSharding, distribute, local_slices
 from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
 
@@ -49,10 +51,10 @@ def _layout_cfg(layout: dict, **over) -> llama.LlamaConfig:
 
 
 class _Recording(train.optim.FusedAdamW):
-    """fused_adamw(1e-3) that keeps the gradients the step hands it."""
+    """fused_adamw(lr) that keeps the gradients the step hands it."""
 
-    def __init__(self):
-        base = train.fused_adamw(1e-3)
+    def __init__(self, lr: float = 1e-3):
+        base = train.fused_adamw(lr)
         super().__init__(base.learning_rate, base.b1, base.b2, base.eps,
                          base.weight_decay, base.mu_dtype, base.nu_dtype)
         self.grads = None
@@ -95,7 +97,8 @@ def parallel_step_rank(rank, world, layouts, jax_params, tokens):
     gradients it handed the optimizer (rank 0 returns them whole) and
     the shapes its MoE layers saw locally; the local block of wq; the
     sharded optimizer's bits on those gradients. Then the moment
-    shardings of test_parallel.py:82 and the pp > 1 refusal."""
+    shardings of test_parallel.py:82 and a pp mesh's refusal of a batch
+    that does not split into its microbatches."""
     out = {}
     batch = {"inputs": torch.from_numpy(tokens[:, :-1].copy()),
              "targets": torch.from_numpy(tokens[:, 1:].copy())}
@@ -170,14 +173,18 @@ def parallel_step_rank(rank, world, layouts, jax_params, tokens):
     _guard(out, "moments", moments)
 
     def pipeline_refused():
+        # the 8 rows do not split into 3 microbatches (JAX's ValueError)
         mesh = build_mesh(MeshConfig(pp=2, fsdp=4))
-        cfg = llama.LlamaConfig.tiny(n_layers=2)
-        params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
-                                   master=True)
+        cfg = llama.LlamaConfig.tiny(n_layers=2, pipeline_microbatches=3)
+        state, _ = train.init_train_state(
+            lambda dev, place: llama.init_params(
+                cfg, torch.Generator().manual_seed(0), dev, master=True,
+                place=place),
+            llama.param_logical_axes(cfg), train.fused_adamw(1e-3), mesh)
         try:
             with use_mesh(mesh):
-                llama.loss_fn(params, batch, cfg)
-        except NotImplementedError as e:
+                llama.loss_fn(state.params, batch, cfg)
+        except ValueError as e:
             return {"raised": str(e)}
         return {"raised": None}
 
@@ -275,4 +282,140 @@ def seq_parallel_rank(rank, world, ring_cases, ulysses_cases):
         return {"raised": None}
 
     _guard(out, "ulysses/indivisible_heads", indivisible)
+    return out
+
+
+# --------------------------------------------------------------------------
+# GPipe over pp (tests/test_torch_pipeline.py)
+# --------------------------------------------------------------------------
+
+def _mlp_layer(h, p):
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def _on_pp(tree: dict, mesh) -> dict:
+    """Leaves [L, ...] every rank holds whole, as DTensors split over pp
+    on dim 0 (replicated elsewhere), requiring grad."""
+    amesh = active_mesh(mesh)
+    placements = tuple(Shard(0) if a == "pp" else Replicate()
+                       for a in active_axes(mesh))
+    return {k: distribute(torch.from_numpy(v.copy()),
+                          NamedSharding(amesh, placements)).requires_grad_()
+            for k, v in tree.items()}
+
+
+def _pipeline_step_case(rank, layout, np_params, tokens, steps):
+    """The sharded train step on a pp mesh: step-1 loss, gradients (rank
+    0: whole), the replicated leaves' gradients against the one-device
+    step's on this rank, the optimizer's bits, then the losses of
+    ``steps`` more steps."""
+    mesh = build_mesh(MeshConfig(**layout))
+    cfg = llama.LlamaConfig.tiny(n_layers=2, pipeline_microbatches=2)
+    batch = {"inputs": torch.from_numpy(tokens[:, :-1].copy()),
+             "targets": torch.from_numpy(tokens[:, 1:].copy())}
+    opt = _Recording(1e-2)
+    state, state_sh = train.init_train_state(
+        lambda dev, place: llama.from_jax_params(np_params, cfg, dev, master=True,
+                                                 place=place),
+        llama.param_logical_axes(cfg), opt, mesh)
+    adamw_params = [DTensor.from_local(p.to_local().clone(), p.device_mesh,
+                                       p.placements, shape=p.shape, stride=p.stride())
+                    for p in tree_leaves(state.params)]
+    step = train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt,
+                                 mesh, state_sh)
+    state, metrics = step(state, batch)
+    res = {"loss": float(metrics["loss"]), "step": state.step,
+           "metric_types": sorted({type(v).__name__ for v in metrics.values()}),
+           "grad_placements_follow_params": all(
+               tuple(g.placements) == sh.placements
+               for g, sh in zip(opt.grads, tree_leaves(state_sh.params))),
+           "layers_local": tuple(state.params["layers"]["wq"].to_local().shape),
+           "moments_follow_params": all(
+               tuple(x.placements) == tuple(p.placements)
+               for tree in (state.opt_state.mu, state.opt_state.nu)
+               for x, p in zip(tree_leaves(tree), tree_leaves(state.params)))}
+    whole = dict(zip(tree_paths(state.params), [_local(g) for g in opt.grads]))
+    if rank == 0:
+        res["grads"] = whole
+    one = llama.from_jax_params(np_params, cfg, "cpu", master=True)
+    leaves = [p.requires_grad_() for p in tree_leaves(one)]
+    loss, _ = llama.loss_fn(tree_unflatten(one, leaves), batch, cfg)
+    one_grads = dict(zip(tree_paths(one), [g.numpy() for g in
+                                           torch.autograd.grad(loss, leaves)]))
+    res["replicated_rel_err"] = {
+        path: float(np.linalg.norm(whole[path] - one_grads[path])
+                    / np.linalg.norm(one_grads[path]))
+        for path in ("embed", "final_norm", "lm_head")}
+    res["adamw"] = _adamw_bits(tree_unflatten(state.params, adamw_params),
+                               opt.grads)
+    res["losses"] = [res["loss"]]
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        res["losses"].append(float(metrics["loss"]))
+    return res
+
+
+def pipeline_rank(rank, world, mlp, grad_cases, llama_cases, step_case):
+    """Every case of tests/test_torch_pipeline.py on this rank (world 8):
+    ``pipeline_apply`` of the MLP stack on pp=4, tp=2 (plain inputs); its
+    gradients on dp=2, pp=4 (params as DTensors over pp) at each
+    microbatch count; ``llama.forward`` on pp=4, fsdp=2 at each
+    ``pipeline_microbatches``; the train step on a pp mesh; the two
+    ValueErrors."""
+    out = {}
+
+    def apply():
+        mesh = build_mesh(MeshConfig(pp=4, tp=2))
+        params = {k: torch.from_numpy(v.copy()) for k, v in mlp["params"].items()}
+        with use_mesh(mesh):
+            y = pipeline_apply(_mlp_layer, params, torch.from_numpy(mlp["x"].copy()),
+                               num_microbatches=4)
+        return {"out": y.numpy()}
+
+    _guard(out, "apply", apply)
+    for name, (params, x, m) in grad_cases.items():
+        def grads(params=params, x=x, m=m):
+            mesh = build_mesh(MeshConfig(dp=2, pp=4))
+            p = _on_pp(params, mesh)
+            h = torch.from_numpy(x.copy()).requires_grad_()
+            with use_mesh(mesh):
+                y = pipeline_apply(_mlp_layer, p, h, num_microbatches=m)
+            (y ** 2).sum().backward()
+            return {"out": y.detach().numpy(), "x": h.grad.numpy(),
+                    **{k: v.grad.full_tensor().numpy() for k, v in p.items()}}
+
+        _guard(out, f"grads/{name}", grads)
+    for name, (np_params, tokens, mb) in llama_cases.items():
+        def forward(np_params=np_params, tokens=tokens, mb=mb):
+            mesh = build_mesh(MeshConfig(pp=4, fsdp=2))
+            cfg = llama.LlamaConfig.tiny(n_layers=4, pipeline_microbatches=mb)
+            state, _ = train.init_train_state(
+                lambda dev, place: llama.from_jax_params(
+                    np_params, cfg, dev, master=True, place=place),
+                llama.param_logical_axes(cfg), train.fused_adamw(1e-3), mesh)
+            with use_mesh(mesh), torch.no_grad():
+                logits = llama.forward(state.params, torch.from_numpy(tokens),
+                                       cfg).full_tensor()
+            return {"logits": logits.numpy() if rank == 0 else None}
+
+        _guard(out, f"llama/{name}", forward)
+    layout, np_params, tokens, steps = step_case
+    _guard(out, "step", lambda: _pipeline_step_case(rank, layout, np_params,
+                                                    tokens, steps))
+
+    def errors():
+        mesh = build_mesh(MeshConfig(pp=2, fsdp=4))
+        raised = []
+        for n_layers, batch, m in ((3, 4, 2), (2, 6, 4)):
+            p = {"w": torch.zeros(n_layers, 8, 8), "b": torch.zeros(n_layers, 8)}
+            try:
+                with use_mesh(mesh):
+                    pipeline_apply(_mlp_layer, p, torch.zeros(batch, 8),
+                                   num_microbatches=m)
+                raised.append(None)
+            except ValueError as e:
+                raised.append(str(e))
+        return {"raised": raised}
+
+    _guard(out, "errors", errors)
     return out

@@ -54,6 +54,10 @@ def test_port_files_exist():
             "ray_tpu_torch/ops/ring_attention.py",
             "ray_tpu_torch/ops/ulysses.py",
             "ray_tpu_torch/multichip.py",
+            "ray_tpu_torch/parallel/pipeline.py",
+            "ray_tpu_torch/parallel/mpmd_pipeline.py",
+            "ray_tpu_torch/parallel/pipeline_runtime.py",
+            "ray_tpu_torch/train/checkpoint.py",
             "tests/test_torch_dist_ranks.py"} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
 
