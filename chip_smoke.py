@@ -93,14 +93,16 @@ PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 # both sides run full f32 (TF32 off, set below).
 TOL = {torch.bfloat16: dict(out=2e-2, lse=1e-3),
        torch.float32: dict(out=1e-4, lse=1e-4)}
-# (name, B, Hq, Hkv, T, S, D, causal, dtype); the first three are the
-# main paths' (1B scoring, 350m training, long-context training). bf16 at
+# (name, B, Hq, Hkv, T, S, D, causal, dtype); the first four are the
+# main paths' (1B scoring, 350m training, long-context training, the 1B
+# pipelines' microbatch of one row). bf16 at
 # D=128 takes flash_fwd_sm90 (the edges of its 128-row q tiles and
 # 128-key tiles below), the rest flash_fwd.
 FLASH_CASES = [
     ("main_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16),
     ("main_350m_train", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16),
     ("long_ctx_350m", 1, 8, 8, 16384, 16384, 128, True, torch.bfloat16),
+    ("pipeline_1b", 1, 16, 8, 2048, 2048, 128, True, torch.bfloat16),
     ("multi_tile_s4096", 1, 16, 8, 4096, 4096, 128, True, torch.bfloat16),
     ("decode_t1_s300", 2, 16, 8, 1, 300, 128, True, torch.bfloat16),
     ("empty_rows_t64_s32", 2, 16, 8, 64, 32, 128, True, torch.bfloat16),
@@ -130,6 +132,7 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_CASES = [
     ("main_350m", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
     ("gqa_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
+    ("pipeline_1b", 1, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
     ("ragged_gqa2_t333_s777", 2, 8, 4, 333, 777, 128, True, torch.bfloat16, "fused"),
     ("ragged_noncausal_gqa4", 1, 8, 2, 333, 777, 128, False, torch.bfloat16, "fused"),
     ("empty_rows_gqa4_t300_s100", 1, 8, 2, 300, 100, 128, True, torch.bfloat16, "fused"),

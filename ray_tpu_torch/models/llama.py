@@ -50,6 +50,7 @@ from ray_tpu_torch.ops.attention import _repeat_kv, attention
 from ray_tpu_torch.ops.losses import softmax_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rotary, rotary_embedding
+from ray_tpu_torch.parallel.mesh import current_mesh
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_stages
 from ray_tpu_torch.parallel.sharding import (local_slices, matmul,
                                              shard_constraint, to_mesh)
@@ -551,7 +552,8 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None):
     DTensors; tokens and positions every rank holds whole are placed by
     the rules (the rotary tables of global positions split as the
     sequence is). On a mesh with pp > 1 the layers run as a GPipe
-    pipeline over pp; each stage places the tables on its own submesh."""
+    pipeline over pp; each stage places the tables on its own submesh
+    once a call."""
     b, t = tokens.shape
     dev = params["embed"].device
     tokens = to_mesh(tokens.to(dev), ("batch", "seq"))
@@ -570,10 +572,15 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None):
         mb = cfg.pipeline_microbatches
         if not mb:  # auto: largest divisor of the batch <= 4 stages' worth
             mb = max(d for d in range(1, min(b, 4 * pp) + 1) if b % d == 0)
-        h = pipeline_apply(
-            lambda c, p: layer_fn(c, p, to_mesh(sin, table_axes),
-                                  to_mesh(cos, table_axes)),
-            params["layers"], h, num_microbatches=mb)
+        placed = {}  # the tables on each stage's submesh, placed once
+
+        def stage_layer(c, p):
+            mesh = current_mesh()
+            if mesh not in placed:
+                placed[mesh] = (to_mesh(sin, table_axes), to_mesh(cos, table_axes))
+            return layer_fn(c, p, *placed[mesh])
+
+        h = pipeline_apply(stage_layer, params["layers"], h, num_microbatches=mb)
     else:
         sin, cos = to_mesh(sin, table_axes), to_mesh(cos, table_axes)
         for p in _unbind_layers(params):

@@ -79,38 +79,39 @@ def dryrun_batch_size(mcfg: MeshConfig) -> int:
     return max(rows, 4) if mcfg.pp > 1 else rows
 
 
-def dryrun_batch(mcfg: MeshConfig, vocab: int, tokens=None) -> dict:
-    """``tokens`` [B, SEQ + 1] (default: from seed 1) as inputs/targets."""
-    if tokens is None:
-        tokens = np.random.RandomState(1).randint(
-            0, vocab, (dryrun_batch_size(mcfg), SEQ + 1))
-    toks = torch.from_numpy(np.asarray(tokens, np.int64))
+def dryrun_batch(mcfg: MeshConfig, vocab: int) -> dict:
+    """[dryrun_batch_size(mcfg), SEQ + 1] tokens from seed 1, as
+    inputs/targets."""
+    toks = np.random.RandomState(1).randint(
+        0, vocab, (dryrun_batch_size(mcfg), SEQ + 1))
+    toks = torch.from_numpy(toks)
     return {"inputs": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
 
 
-def dryrun_params(cfg, device, place=None, jax_params=None):
-    """The dry run's f32 masters: from seed 0 on the CPU generator, or
-    converted from the JAX package's tree (numpy leaves)."""
+def dryrun_params(cfg, device, place=None):
+    """The dry run's f32 masters, from seed 0 on the CPU generator."""
     kw = {} if place is None else {"place": place}
-    if jax_params is not None:
-        return llama.from_jax_params(jax_params, cfg, device, master=True, **kw)
     return llama.init_params(cfg, torch.Generator().manual_seed(0), device,
                              master=True, **kw)
 
 
-def _dryrun_one(rank: int, world: int, mcfg: MeshConfig, inputs) -> float:
+def _dryrun_one(rank: int, world: int, mcfg: MeshConfig, params_fn=None,
+                batch=None) -> float:
+    """One layout's step; ``params_fn(cfg, device, place)`` and ``batch``
+    default to ``dryrun_params`` and ``dryrun_batch``."""
     mesh = build_mesh(mcfg)
     cfg = dryrun_config(mcfg)
-    jax_params, tokens = inputs or (None, None)
+    params_fn = params_fn or dryrun_params
     opt = train.fused_adamw(1e-3)
     state, state_sh = train.init_train_state(
-        lambda dev, place: dryrun_params(cfg, dev, place, jax_params),
+        lambda dev, place: params_fn(cfg, dev, place),
         llama.param_logical_axes(cfg), opt, mesh)
     step = train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt,
                                  mesh, state_sh)
     dev = state.params["embed"].device
-    batch = {k: v.to(dev)
-             for k, v in dryrun_batch(mcfg, cfg.vocab_size, tokens).items()}
+    if batch is None:
+        batch = dryrun_batch(mcfg, cfg.vocab_size)
+    batch = {k: v.to(dev) for k, v in batch.items()}
     state, metrics = step(state, batch)
     loss = float(metrics["loss"])
     losses = [None] * world
@@ -123,24 +124,16 @@ def _dryrun_one(rank: int, world: int, mcfg: MeshConfig, inputs) -> float:
     return loss
 
 
-def _dryrun_rank(rank: int, world: int, layouts, inputs) -> list[float]:
-    return [_dryrun_one(rank, world, mcfg, inp)
-            for mcfg, inp in zip(layouts, inputs)]
+def _dryrun_rank(rank: int, world: int, layouts) -> list[float]:
+    return [_dryrun_one(rank, world, mcfg) for mcfg in layouts]
 
 
-def dryrun_multichip(n_devices: int, *, device=None, inputs=None) -> list[float]:
+def dryrun_multichip(n_devices: int, *, device=None) -> list[float]:
     """One sharded train step over ``n_devices`` ranks for each layout of
     ``dryrun_layouts`` (``launch.spawn``: CUDA with NCCL by default,
     raising if the host has fewer cards; ``device="cpu"`` for gloo).
-    ``inputs``, one per layout, is (the JAX package's init params as a
-    numpy tree, tokens [B, SEQ + 1]) to run in place of the seeded ones,
-    as a test holds each layout to the JAX dry run. Returns each layout's
-    step-1 loss."""
-    layouts = dryrun_layouts(n_devices)
-    inputs = list(inputs) if inputs is not None else [None] * len(layouts)
-    if len(inputs) != len(layouts):
-        raise ValueError(f"{len(inputs)} inputs for {len(layouts)} layouts")
-    return launch.spawn(_dryrun_rank, n_devices, layouts, inputs,
+    Returns each layout's step-1 loss."""
+    return launch.spawn(_dryrun_rank, n_devices, dryrun_layouts(n_devices),
                         device=device)[0]
 
 

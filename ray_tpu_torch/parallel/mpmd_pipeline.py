@@ -232,7 +232,7 @@ def _stage_loop(session, config: dict) -> None:
     n_my_backwards = sum(1 for kind, _ in acts if kind == "B")
 
     def _boundary(op: str, m: int, step: int) -> str | None:
-        # the pipeline.stage fault site: die/exit/delay/stall act inside
+        # the pipeline.stage fault site: die and exit act inside
         # fire(); "drop" is ours to implement (skip the send, so that the
         # peer's recv deadline trips: a typed CollectiveTimeoutError)
         return session.fire("pipeline.stage", stage=s_idx, mb=m, op=op,

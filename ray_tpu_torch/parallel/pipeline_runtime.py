@@ -13,9 +13,9 @@ members' calls from ``serve/runtime.py``. A runtime has, for the driver:
 
 - ``start(sizes, name, *, max_restarts, resources)``: one worker per
   (stage s, dp index i < sizes[s]), with ``resources`` each where the
-  runtime places workers, global rank ``offs[s] + i`` (offs: the cumsum
-  of the sizes) in a p2p group over all of them, and a sum group per
-  stage; epoch 1;
+  runtime places workers (the in-process runtime ignores them), global
+  rank ``offs[s] + i`` (offs: the cumsum of the sizes) in a p2p group
+  over all of them, and a sum group per stage; epoch 1;
 - ``workers() -> [(stage, index, handle)]``, in global-rank order;
 - ``launch(handle, fn, config, resume_path, resume_seq)``: run
   ``fn(session, config)`` on the worker, ``session`` being the worker's
@@ -41,8 +41,8 @@ None), ``send(x, dst)`` and ``recv(src, timeout)`` on the p2p lanes,
 ``allreduce_sum(tree, timeout)`` over the stage's replicas,
 ``report(metrics)``, ``arm(fault_specs)`` and ``fire(site, **ctx)``
 (the fault site: ``die``
-raises :class:`InjectedFault`, ``exit`` kills the worker, ``delay`` and
-``stall`` sleep, ``drop`` is returned for the caller to act on) and
+raises :class:`InjectedFault`, ``exit`` kills the worker, ``drop`` is
+returned for the caller to act on) and
 ``record(...)``.
 
 :class:`InProcessPipelineRuntime` is the default: each worker is a thread
@@ -187,7 +187,10 @@ class _Session:
 
     def arm(self, fault_specs) -> None:
         """Arm fault specs (dicts: ``site``, ``match``, ``after``, ``count``,
-        ``action``, ``delay_s``) for this worker's ``fire`` calls."""
+        ``action``: die, exit or drop) for this worker's ``fire`` calls."""
+        for spec in fault_specs:
+            if spec["action"] not in ("die", "exit", "drop"):
+                raise ValueError(f"unknown fault action {spec['action']!r}")
         self._specs = [dict(s, _seen=0) for s in fault_specs]
 
     def _check(self):
@@ -237,9 +240,6 @@ class _Session:
             if action == "exit":
                 self._rt.kill(self._worker)
                 raise WorkerKilled()
-            if action in ("delay", "stall"):
-                time.sleep(float(spec.get("delay_s", 1.0)))
-                return None
             return action  # "drop": the caller skips the send
         return None
 
@@ -269,7 +269,7 @@ class InProcessPipelineRuntime:
 
     def start(self, sizes, name: str, *, max_restarts: int = 0,
               resources: dict | None = None) -> None:
-        """Workers are threads here: ``resources`` places nothing."""
+        """Workers are threads here: ``resources`` is ignored."""
         self._sizes, self._name = list(sizes), name
         self._max_restarts = max_restarts
         self._bytes_before = 0

@@ -16,7 +16,7 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ray_tpu_torch import train
+from ray_tpu_torch import multichip, train
 from ray_tpu_torch.collective import mesh_ops
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import ring_attention, ulysses
@@ -419,3 +419,23 @@ def pipeline_rank(rank, world, mlp, grad_cases, llama_cases, step_case):
 
     _guard(out, "errors", errors)
     return out
+
+
+# --------------------------------------------------------------------------
+# The dry run from the JAX package's inputs (tests/test_torch_multichip.py)
+# --------------------------------------------------------------------------
+
+def dryrun_from_jax_rank(rank, world, layouts, inputs):
+    """``multichip``'s step of each layout, from (the JAX dry run's params
+    as a numpy tree, its tokens [B, SEQ + 1]) in place of the seeded ones;
+    rank 0 prints each layout's ``dryrun_multichip ok`` line."""
+    losses = []
+    for mcfg, (np_params, tokens) in zip(layouts, inputs):
+        toks = torch.from_numpy(np.asarray(tokens, np.int64))
+        losses.append(multichip._dryrun_one(
+            rank, world, mcfg,
+            lambda cfg, dev, place: llama.from_jax_params(
+                np_params, cfg, dev, master=True, place=place),
+            {"inputs": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}))
+    return losses

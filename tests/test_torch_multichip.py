@@ -12,8 +12,10 @@ for each layout once every rank has the same loss.
   tests/test_parallel.py:72).
 - At 8 and at 4 ranks from the JAX dry run's own params and tokens
   (``__graft_entry__._dryrun_one``'s PRNGKey(0) init and PRNGKey(1)
-  tokens): each layout's step-1 loss equals the loss that
-  ``_dryrun_one`` prints for the same mesh within rtol 2e-4. The loss is
+  tokens, through ``multichip``'s step by
+  ``test_torch_dist_ranks.dryrun_from_jax_rank``): each layout's step-1
+  loss equals the loss that ``_dryrun_one`` prints for the same mesh
+  within rtol 2e-4. The loss is
   taken before the update, so optax's adamw against the port's
   ``fused_adamw`` does not enter.
 """
@@ -32,6 +34,9 @@ from ray_tpu.models import llama as jl
 from ray_tpu.parallel import MeshConfig as JMeshConfig
 from ray_tpu_torch import multichip, train
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel import launch
+
+import test_torch_dist_ranks as ranks
 
 
 def _ok_lines(out: str) -> list[str]:
@@ -93,8 +98,8 @@ def test_dryrun_layouts_match_jax(n, capfd):
     assert len(layouts) == 2 and layouts[1].pp == 2
     jax_side = [_jax_layout(m) for m in layouts]
     capfd.readouterr()
-    losses = multichip.dryrun_multichip(n, device="cpu",
-                                        inputs=[inp for _, inp in jax_side])
+    losses = launch.spawn(ranks.dryrun_from_jax_rank, n, layouts,
+                          [inp for _, inp in jax_side], device="cpu")[0]
     assert _ok_lines(capfd.readouterr().out) == [
         f"dryrun_multichip ok: mesh={m.describe()} loss={loss:.4f} step=1"
         for m, loss in zip(layouts, losses)]
