@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phases trainer,mesh   # only these groups
+
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain torch version on the card, drives the inference
@@ -37,7 +39,12 @@ step, ring and Ulysses attention at sp = 1, and the GPipe pipeline at pp
 = 1 over the 1B layer stack held to the plain layer loop. Then the
 pipeline slice's path: Llama-1B as a two-stage MPMD pipeline (a thread
 and a CUDA stream per stage, 1F1B, 4 microbatches of B1 x T2048, 3 SGD
-steps) held to the sequential one-device run of the same steps. Every
+steps) held to the sequential one-device run of the same steps. Then
+the train runtime's path: a Trainer of two data-parallel workers (threads
+with a CUDA stream each) running the Llama-1B step, gradients averaged
+through the host every step, rank 0 saving the train state after step 2,
+worker 1 killed in step 3 and resumed in place from that checkpoint,
+held to the same run without the fault. Every
 bf16 head_dim-128
 flash call on those paths must go
 through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
@@ -49,7 +56,9 @@ from a CUDA graph), the plain version's time, the library call's time,
 the card's bound, its share of that bound and ptxas's registers; the
 last line is {"ok": true, "device": {...}}. Any failure raises: the exit
 code is then non-zero and no result line is printed. Needs one CUDA
-device.
+device. With --phases it runs the device and build phases and then only
+the named groups of GROUPS (or the groups of the named phases), and
+prints no kernels line.
 """
 
 from __future__ import annotations
@@ -57,7 +66,9 @@ from __future__ import annotations
 import collections
 import json
 import logging
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -78,6 +89,9 @@ from ray_tpu_torch.parallel import (MpmdPipeline, StageSpec, launch,
                                     pipeline_apply, pipeline_stages)
 from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, use_mesh
 from ray_tpu_torch.parallel.pipeline_runtime import InProcessPipelineRuntime
+from ray_tpu_torch.train import checkpoint as ckpt_mod
+from ray_tpu_torch.train import dcn, fault_injection
+from ray_tpu_torch.train.worker_group import InProcessTrainRuntime
 from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve import llm_pool
 from ray_tpu_torch.serve import runtime as serve_runtime
@@ -186,15 +200,28 @@ NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dq_sm90",
                "flash_bwd_dkv_sm90")
 
 
+# requests of 128 new tokens on the 1B serving paths: two waves of the
+# 8 slots (32 before, four waves; halved to keep the whole run
+# inside its time limit), but for the greedy engine and LLMServer, which
+# keep 32: the server's live weight swap needs requests that its 16
+# handler threads submit after the swap has landed
+SERVING_REQUESTS = 16
+SERVER_REQUESTS = 32
 RECORDS = {}  # the last line emitted by each phase
-T_IMPORT = time.perf_counter()
+T_IMPORT = T_LAST = time.perf_counter()
 
 
 def emit(obj) -> None:
     """Print one JSON line; a phase's line also records when it was
-    printed (at_s: seconds since this module was imported)."""
+    printed (at_s: seconds since this module was imported) and the
+    seconds since the line before it (phase_s: the phase's own seconds,
+    for a phase that prints one line)."""
+    global T_LAST
     if "phase" in obj:
-        obj["at_s"] = round(time.perf_counter() - T_IMPORT, 1)
+        now = time.perf_counter()
+        obj["at_s"] = round(now - T_IMPORT, 1)
+        obj["phase_s"] = round(now - T_LAST, 1)
+        T_LAST = now
         RECORDS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
@@ -447,7 +474,7 @@ def phase_scoring(cfg, params):
 
 
 def phase_serving(cfg, params):
-    prompt_len, new_tokens, n_requests, slots = 128, 128, 32, 8
+    prompt_len, new_tokens, n_requests, slots = 128, 128, SERVER_REQUESTS, 8
     eng = decode_engine.RaggedDecoder(
         params, cfg, slots=slots, max_len=prompt_len + new_tokens + 32,
         chunk_tokens=32, prompt_buckets=(prompt_len,), device="cuda")
@@ -616,13 +643,13 @@ def agreement(params, cfg, prompts, got, want, lanes):
             "divergences": divergences}
 
 
-def serving_requests():
+def serving_requests(n: int = SERVING_REQUESTS):
     """phase_serving's requests, from the same seeded stream: its warm-up
-    prompt and its 32 prompts of 128 tokens."""
+    prompt and the first n of its prompts of 128 tokens."""
     rng = np.random.RandomState(SEED)
     warm = rng.randint(1, 30000, 128).astype(np.int32)
     return warm, [rng.randint(1, 30000, 128).astype(np.int32)
-                  for _ in range(32)]
+                  for _ in range(n)]
 
 
 def serving_engine(cfg, params, **kw):
@@ -746,13 +773,13 @@ def phase_prng_card_vs_cpu():
 
 
 def phase_serving_sampled(cfg, params):
-    """phase_serving's 32 requests, sampled (temperature 0.8, top_p 0.95,
+    """phase_serving's requests, sampled (temperature 0.8, top_p 0.95,
     seed 1000 + i). Checks: every stream finishes, logprobs finite and <=
     0, four streams replayed alone give the same tokens and logprobs bit
     for bit (the engine's products keep their shapes: 8 slots, prefill
     width 8), and behaviour logprobs of 8 streams at temperature 1 beside
     the teacher-forced log-softmax of llama.forward, which launches
-    flash_fwd_sm90 once a layer. Returns (launches, the 32 streams'
+    flash_fwd_sm90 once a layer. Returns (launches, the streams'
     tokens)."""
     warm, prompts = serving_requests()
     lanes = [dict(SAMPLED, seed=1000 + i) for i in range(len(prompts))]
@@ -766,7 +793,7 @@ def phase_serving_sampled(cfg, params):
     if not (np.isfinite(lps).all() and (lps <= 0.0).all()):
         raise AssertionError("sampled logprobs not finite and <= 0")
     replayed = {}
-    for j in (0, 9, 18, 31):
+    for j in (0, 5, 10, 15):
         (s,), _ = serve(eng, [prompts[j]], 128, [lanes[j]])
         replayed[j] = (s.tokens == streams[j].tokens
                        and bits_equal(s.logprobs, streams[j].logprobs))
@@ -1031,7 +1058,7 @@ def serve_through_server(srv, prompts, new_tokens, on_progress,
 def phase_serving_server(greedy_tokens):
     """The serving wrappers at Llama-1B: LLMServer (8 slots of 288 rows,
     chunks of 32; weights equal to phase_serving's, the same seeded
-    init_params) serves phase_serving's 32 requests from 16 handler
+    init_params) serves phase_serving's requests from 16 handler
     threads, half by generate() and half streamed; an update_weights to
     the same tree as version 1 is sent once 4 have finished; then four
     streams prefilled by a PrefillWorker are adopted. Raises unless the
@@ -1044,7 +1071,7 @@ def phase_serving_server(greedy_tokens):
     (bench.py's normalisation: positive stamp gaps over the chunk).
     Returns the path's flash launches: none, the engine attends by a
     masked einsum, as the JAX package's does."""
-    warm, prompts = serving_requests()
+    warm, prompts = serving_requests(SERVER_REQUESTS)
     new_tokens, chunk = 128, 32
     errors = PumpErrors()
     port_log = logging.getLogger("ray_tpu_torch")
@@ -1292,7 +1319,7 @@ def phase_serving_pool(cfg, params, greedy_tokens, sampled_tokens):
     LLMServer replicas of phase_serving_server's shape (8 slots of 288
     rows, chunks of 32, weights from the same seed), members in this
     process (the in-process runtime). (a) 2 replicas serve phase_serving's
-    32 greedy requests from 16 handler threads, half generate(), half
+    greedy requests from 16 handler threads, half generate(), half
     streamed with poll_stream() every POLL_TICK_S; (b) on that pool, 8
     greedy and 8 sampled requests (phase_serving_sampled's lanes), and the
     replica of the first stream to hold 6 tokens is killed; (c) a fresh
@@ -1300,7 +1327,7 @@ def phase_serving_pool(cfg, params, greedy_tokens, sampled_tokens):
     same weights as a host tree and wait_version(1), then serves 8
     requests, all routed to the worker (prefill_threshold=128); (d) an
     autoscaling pool (1 to 2 replicas, 4 requests a replica) takes a burst
-    of 16 requests of 32 new tokens. Raises unless (a) all 32 agree with
+    of 16 requests of 32 new tokens. Raises unless (a) all of them agree with
     phase_serving's tokens (near-tie rule); (b) no client sees an error,
     every request agrees with its uninterrupted run (phase_serving's,
     phase_serving_sampled's) and the kill freed the replica's device
@@ -1738,7 +1765,7 @@ def phase_scoring_1b_moe(cfg, params, peaks):
 
 
 def phase_serving_1b_moe(cfg, params):
-    """phase_serving's 32 requests on the 1B-MoE (8 slots of 288 rows,
+    """phase_serving's requests on the 1B-MoE (8 slots of 288 rows,
     chunks of 32): greedy, the served sequences scored again (22
     flash_fwd_sm90), then sampled (temperature 0.8, top_p 0.95, seed 1000
     + i) twice, the two runs equal bit for bit (tokens and logprobs).
@@ -2751,6 +2778,303 @@ def phase_pipeline_mpmd_1b():
     return counts
 
 
+TRAINER_STEPS, TRAINER_SAVE_STEP, TRAINER_KILL_STEP = 4, 2, 3
+TRAINER_BLOCKS = 8  # seeded token blocks of B2 x T2049, 4 a worker
+TRAINER_BUCKET = 64 * 2**20  # dcn_allreduce_grads bucket bytes
+
+
+def trainer_blocks():
+    """The trainer's dataset: TRAINER_BLOCKS seeded token blocks, each one
+    worker's batch for one step (B2 x T2048 inputs and targets)."""
+    out = []
+    for i in range(TRAINER_BLOCKS):
+        toks = np.random.RandomState(SEED + 1100 + i).randint(
+            0, 32128, (2, 2049)).astype(np.int64)
+        out.append(torch.from_numpy(toks))
+    return out
+
+
+def state_checksums(state, chunk=2**26) -> list:
+    """Per leaf of a train state (or any tree), on the card: the sum of
+    its bit patterns and their sum weighted by (index mod 997) + 1, as
+    int64 wrapping (the step counters as they are), taken `chunk`
+    elements at a time. Equal lists mean equal bits, bar a collision."""
+    out = []
+    leaves, _ = ckpt_mod._flatten(state)
+    for x in leaves:
+        if not isinstance(x, torch.Tensor):
+            out.append(int(np.asarray(x)))
+            continue
+        flat = x.detach().reshape(-1).view(
+            torch.int16 if x.element_size() == 2 else torch.int32)
+        s0 = torch.zeros((), dtype=torch.int64, device=flat.device)
+        s1 = torch.zeros_like(s0)
+        for a in range(0, flat.numel(), chunk):
+            bits = flat[a:a + chunk].to(torch.int64)
+            w = torch.arange(a, a + bits.numel(), device=bits.device) % 997 + 1
+            s0 += bits.sum()
+            s1 += (bits * w).sum()
+            del bits, w
+        out.append([int(s0), int(s1)])
+    return out
+
+
+def trainer_loop(config):
+    """One worker of the train_1b_trainer phase (a thread of this process
+    with its own CUDA stream): train_1b's step on its own DataShard, the
+    gradients averaged across the gang by dcn_allreduce_grads every step;
+    rank 0 saves the whole state after step TRAINER_SAVE_STEP; with
+    config["kill"], worker 1 exits halfway through step
+    TRAINER_KILL_STEP's gradient sync. A resumed worker restores the
+    checkpoint onto the card and its data cursor from it. What is
+    measured goes to config["probe"] (shared by the threads): per step
+    the block the worker consumed and its params' checksums (taken after
+    the report, so in the next step's compute segment), and with
+    config["kill"] the raw and the synced gradients of step 1's bucket
+    with the most leaves, on the host."""
+    from ray_tpu_torch.train import session
+
+    cfg, probe, dev = config["cfg"], config["probe"], config["device"]
+    rank, seq = session.get_world_rank(), session.get_resume_seq()
+    group = session.get_collective_group()
+    opt = train.fused_adamw(1e-4, weight_decay=0.01, mu_dtype=torch.bfloat16,
+                            nu_dtype=torch.bfloat16)
+    ck = session.get_checkpoint()
+    shard = session.get_dataset_shard("train")
+    if ck is None:
+        g = torch.Generator(device=dev).manual_seed(SEED + 1000)
+        state = train.init_train_state(
+            lambda d: llama.init_params(cfg, g, d, master=True), opt, device=dev)
+    else:
+        stats = {}
+        t0 = time.perf_counter()
+        state = train.restore_state(ck.path, device=dev, stats=stats)
+        if dev == "cuda":
+            torch.cuda.current_stream().synchronize()
+        restore_s = time.perf_counter() - t0
+        shard.load_state(ck.to_dict()["cursor"])
+        probe[("restored", seq, rank)] = {
+            "seconds": restore_s, "bytes_read": stats["bytes_read"],
+            "checksums": state_checksums(state), "step": state.step}
+    buckets = list(dcn._fill_buckets(
+        [torch.empty(p.shape, dtype=torch.bfloat16, device="meta")
+         for p in ckpt_mod._flatten(state.params)[0]], TRAINER_BUCKET))
+    n_buckets = len(buckets)
+    held = [i for i, _, _ in max(buckets, key=lambda b: len(b[2]))[2]]
+    if config["kill"] and seq == 0 and rank == 1:
+        # each step makes n_buckets gradient calls and one cursor call
+        fault_injection.configure([{
+            "site": "collective.allreduce", "match": {"rank": 1},
+            "after": (TRAINER_KILL_STEP - 1) * (n_buckets + 1) + n_buckets // 2,
+            "count": 1, "action": "exit"}])
+    def sync(grads):
+        synced = train.dcn_allreduce_grads(grads, group,
+                                           bucket_bytes=TRAINER_BUCKET)
+        if config["kill"] and seq == 0 and state.step == 0:
+            raw = ckpt_mod._flatten(grads)[0]
+            out = ckpt_mod._flatten(synced)[0]
+            probe[("bucket", rank)] = ([raw[i].float().cpu() for i in held],
+                                       [out[i].cpu() for i in held])
+        return synced
+
+    step = train.make_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), opt, compute_grad_norm=False,
+        grads_dtype=torch.bfloat16, device=dev, sync_grads=sync)
+    blocks = iter(shard)
+    while state.step < TRAINER_STEPS:
+        before = set(shard.state()["consumed"])
+        toks = next(blocks).to(dev, non_blocking=True)
+        (block,) = set(shard.state()["consumed"]) - before
+        state, metrics = step(state, {"inputs": toks[:, :-1],
+                                      "targets": toks[:, 1:]})
+        onehot = np.zeros(TRAINER_BLOCKS, np.float32)
+        onehot[shard.state()["consumed"]] = 1
+        consumed = train.dcn_allreduce_grads({"c": onehot}, group, op="sum")["c"]
+        ckpt = None
+        if rank == 0 and state.step == TRAINER_SAVE_STEP:
+            probe[("saved", seq)] = state_checksums(state)
+            t0 = time.perf_counter()
+            ckpt = train.save_state(state, os.path.join(
+                config["ck_dir"], f"step{state.step}"), extra={"cursor": {
+                    "epoch": shard.epoch,
+                    "consumed": [int(i) for i in np.nonzero(consumed)[0]]}})
+            probe[("save", seq)] = {"seconds": time.perf_counter() - t0,
+                                    "bytes": sum(os.path.getsize(os.path.join(
+                                        ckpt.path, f)) for f in os.listdir(ckpt.path))}
+        session.report({"step": state.step, "loss": float(metrics["loss"]),
+                        "n_buckets": n_buckets}, checkpoint=ckpt)
+        probe[("block", seq, rank, state.step)] = block
+        probe[("params", seq, rank, state.step)] = state_checksums(state.params)
+
+
+def step_segments(spans) -> list:
+    """Each train.step span as its ms by segment (session._close_step's
+    breakdown: compute is the step's wall less its waits)."""
+    return [{"rank": a["rank"], "step": a["step"], "resume_seq": a["resume_seq"],
+             "ms": 1e3 * (t1 - t0), "compute_ms": 1e3 * a["compute_s"],
+             "collective_ms": 1e3 * a["collective_wait_s"],
+             "checkpoint_ms": 1e3 * a["checkpoint_s"],
+             "data_ms": 1e3 * a["data_wait_s"]}
+            for name, t0, t1, a in spans.spans if name == "train.step"]
+
+
+def run_trainer(cfg, kill, ck_dir, device="cuda"):
+    """A Trainer(backend="dcn") of 2 workers on the in-process gang; returns
+    (result, probe, spans, flash launches)."""
+    spans, probe = SpanLog(), {}
+    trainer = train.Trainer(
+        trainer_loop,
+        train_loop_config={"cfg": cfg, "probe": probe, "kill": kill,
+                           "ck_dir": ck_dir, "device": device},
+        scaling_config=train.ScalingConfig(num_workers=2, backend="dcn",
+                                           max_restarts=1),
+        run_config=train.RunConfig(name="train_1b_trainer",
+                                   storage_path=ck_dir, max_failures=0),
+        datasets={"train": trainer_blocks()},
+        runtime=InProcessTrainRuntime(spans))
+    fault_injection.clear()
+    fa.reset_launch_count()
+    result = trainer.fit()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    fault_injection.clear()
+    return result, probe, spans, counts
+
+
+def phase_train_1b_trainer():
+    """The train runtime's path at full width and depth: Trainer(backend=
+    "dcn") with 2 workers on the in-process gang (threads with a CUDA
+    stream each, both on this card), max_restarts=1. Each worker runs
+    train_1b's step (Llama-1B, remat flash_qkv, B2 x T2048, bf16 gradients
+    and moments, fused_adamw) on its DataShard of seeded token blocks,
+    the gradients averaged every step by dcn_allreduce_grads through the
+    host. Rank 0 saves the train state with save_state after step 2;
+    worker 1 exits during step 3's gradient sync; the trainer resumes in
+    place (worker 1 respawned, both restore the step-2 checkpoint onto
+    the card and their data cursors from it) and finishes steps 3-4. Then
+    the same trainer runs 4 steps with no fault. Checks: resumes
+    {"inplace": 1, "gang": 0}; every restored state's per-leaf checksums
+    equal those taken before the save; the losses of steps 3-4 within
+    rel 1e-3 of the unfaulted run's (the fused backward's dq atomics);
+    step 1's synced bucket with the most leaves, as both workers got it on
+    the card, bit-equal to the host mean of their raw gradients; after
+    every step the two workers' params bit-equal; the block each worker
+    consumed at each step the unfaulted run's; 22 + 22 flash launches
+    per worker per step."""
+    cfg = train_config("1b", "flash_qkv")
+    ck_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "train_1b_trainer")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, probe, spans, counts = run_trainer(cfg, True, os.path.join(ck_root, "a"))
+    fault_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if res.error is not None:
+        raise AssertionError(f"train_1b_trainer: {res.error}")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ref, ref_probe, ref_spans, ref_counts = run_trainer(
+        cfg, False, os.path.join(ck_root, "b"))
+    ref_s = time.perf_counter() - t1
+    ref_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(ck_root, ignore_errors=True)
+    losses = [m["loss"] for m in res.metrics_history]
+    ref_losses = [m["loss"] for m in ref.metrics_history]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    saved = probe[("saved", 0)]
+    restored = {f"rank{k[2]}": v for k, v in probe.items() if k[0] == "restored"}
+    bit_equal = bool(restored) and all(v["checksums"] == saved
+                                       for v in restored.values())
+    # the dcn sync on the card against the plain host mean of the two
+    # workers' raw gradients (f32 sum, one rounding to bf16: exact)
+    (raw0, got0), (raw1, got1) = probe[("bucket", 0)], probe[("bucket", 1)]
+    want_mean = [((a + b) / 2).to(torch.bfloat16) for a, b in zip(raw0, raw1)]
+    sync_exact = all(torch.equal(w, g0) and torch.equal(w, g1)
+                     for w, g0, g1 in zip(want_mean, got0, got1))
+    sync_elems = sum(w.numel() for w in want_mean)
+    del raw0, got0, raw1, got1, want_mean
+
+    def per_step(pr, kind):
+        """(rank, step) -> the value the run that finished that step
+        recorded (a resumed attempt overrides the first)."""
+        return {k[2:]: v for k, v in sorted(
+            ((k, v) for k, v in pr.items() if k[0] == kind),
+            key=lambda kv: kv[0][1])}
+
+    blocks, ref_blocks = per_step(probe, "block"), per_step(ref_probe, "block")
+    blocks_match = blocks == ref_blocks and len(blocks) == 2 * TRAINER_STEPS
+
+    def ranks_agree_in(pr):
+        sums = {k[1:]: v for k, v in pr.items() if k[0] == "params"}
+        return bool(sums) and all(sums.get((seq, 1 - r, st)) == v
+                                  for (seq, r, st), v in sums.items())
+
+    ranks_agree = ranks_agree_in(probe) and ranks_agree_in(ref_probe)
+    kill_t = [t for name, t, _, _ in spans.spans if name == "worker.killed"]
+    first_after = min(t1_ for name, _, t1_, a in spans.spans
+                      if name == "train.step" and a["resume_seq"] == 1)
+    n1b = cfg.n_layers
+    worker_steps = 2 * TRAINER_STEPS + 2  # step 3 ran its backward twice
+    want = expected(flash_fwd_sm90=worker_steps * n1b,
+                    flash_bwd_fused_sm90=worker_steps * n1b)
+    want_ref = expected(flash_fwd_sm90=2 * TRAINER_STEPS * n1b,
+                        flash_bwd_fused_sm90=2 * TRAINER_STEPS * n1b)
+    rows = step_segments(spans)
+    ref_rows = step_segments(ref_spans)
+    steady = [r for r in ref_rows if r["step"] > 1]
+    ok = (res.resumes == {"inplace": 1, "gang": 0}
+          and ref.resumes == {"inplace": 0, "gang": 0}
+          and [m["step"] for m in res.metrics_history] == [1, 2, 3, 4]
+          and len(restored) == 2 and bit_equal and sync_exact
+          and blocks_match and ranks_agree
+          and all(np.isfinite(losses)) and max(rel) <= 1e-3
+          and counts == want and ref_counts == want_ref)
+    emit({"phase": "train_1b_trainer", "workers": 2, "backend": "dcn",
+          "n_params": cfg.num_params(), "batch_per_worker": [2, 2048],
+          "steps": TRAINER_STEPS, "save_after_step": TRAINER_SAVE_STEP,
+          "kill_during_step": TRAINER_KILL_STEP, "resumes": res.resumes,
+          "reference_resumes": ref.resumes, "losses": losses,
+          "reference_losses": ref_losses, "loss_rel_diff": rel,
+          "loss_rel_tol": 1e-3, "restored_bit_equal": bit_equal,
+          "sync_bucket_equals_host_mean": sync_exact,
+          "sync_bucket_elements": sync_elems,
+          "blocks_by_rank_step": {f"{r}/{st}": b
+                                  for (r, st), b in sorted(blocks.items())},
+          "blocks_equal_unfaulted": blocks_match,
+          "params_equal_across_ranks_every_step": ranks_agree,
+          "save_seconds": probe[("save", 0)]["seconds"],
+          "save_bytes": probe[("save", 0)]["bytes"],
+          "restore": {k: {"seconds": v["seconds"], "bytes_read": v["bytes_read"]}
+                      for k, v in restored.items()},
+          "kill_to_first_resumed_report_s": first_after - kill_t[0],
+          "grad_buckets_per_step": res.metrics_history[0]["n_buckets"],
+          "bucket_bytes": TRAINER_BUCKET,
+          "step_segments": rows,
+          "reference_step_segments": ref_rows,
+          "reference_step_ms_mean": float(np.mean([r["ms"] for r in steady])),
+          "reference_compute_ms_mean": float(np.mean([r["compute_ms"]
+                                                     for r in steady])),
+          "reference_collective_ms_mean": float(np.mean([r["collective_ms"]
+                                                        for r in steady])),
+          "one_device_step_ms": RECORDS.get("train_1b", {}).get("step_ms"),
+          "launches": counts, "expected_launches": want,
+          "reference_launches": ref_counts,
+          "faulted_run_seconds": fault_s, "reference_run_seconds": ref_s,
+          "max_allocated_gb": peak_gb, "reference_max_allocated_gb": ref_peak_gb,
+          "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_1b_trainer: resumes {res.resumes}, losses "
+                             f"{losses} against {ref_losses}, restored bit-equal "
+                             f"{bit_equal}, sync exact {sync_exact}, blocks "
+                             f"{blocks} against {ref_blocks}, ranks agree "
+                             f"{ranks_agree}, launches {counts} (expected {want})")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def sdpa_bwd_ms(q, k, v, do):
     """The library's backward alone: scaled_dot_product_attention forward
     + backward minus its forward, on the same inputs (timed only)."""
@@ -2889,95 +3213,144 @@ def expected(**launches):
     return {**{k: 0 for k in fa.launch_counts()}, **launches}
 
 
+# --phases takes these groups, or any phase of one (which runs its group)
+GROUPS = {
+    "kernels": ("kernel_vs_plain", "bwd_kernel_vs_plain", "bwd_determinism",
+                "bwd_routes"),
+    "serving": ("init_1b", "scoring_1b", "serving_1b", "prng_card_vs_cpu",
+                "serving_1b_sampled", "serving_1b_spec", "serving_1b_prefix",
+                "serving_1b_disaggregated", "serving_1b_server",
+                "serving_1b_pool", "exactness_f32_2layer"),
+    "moe": ("init_1b_moe", "scoring_1b_moe", "serving_1b_moe",
+            "moe_layer_card_vs_cpu", "exactness_f32_2layer_moe",
+            "serving_moe_tiny_server", "train_1b_moe"),
+    "train": ("train_350m", "train_1b", "train_long_context",
+              "grad_exactness_f32", "sr_card_vs_cpu"),
+    "mesh": ("mesh_dryrun_card", "train_1b_mesh", "seq_parallel_card"),
+    "pipeline": ("pipeline_gpipe_card", "pipeline_mpmd_1b"),
+    "trainer": ("train_1b_trainer",),
+    "profile": ("profile_train_350m", "profile_train_long_context"),
+}
+
+
+def selected_groups(argv) -> set:
+    """The groups ``--phases a,b,...`` names (every group without it)."""
+    if "--phases" not in argv:
+        return set(GROUPS)
+    names = argv[argv.index("--phases") + 1].split(",")
+    out = set()
+    for name in names:
+        hit = [g for g, phases in GROUPS.items() if name == g or name in phases]
+        if not hit:
+            raise SystemExit(f"unknown phase {name!r}; groups: {sorted(GROUPS)}")
+        out.update(hit)
+    return out
+
+
 def main() -> None:
+    groups = selected_groups(sys.argv[1:])
     t_start = time.perf_counter()
     name, smi, peaks = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 checks are full f32
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     build_info = phase_build()
-    phase_kernel_vs_plain()
-    phase_bwd_kernel_vs_plain()
-    phase_bwd_determinism()
-    phase_bwd_routes()
-    cfg = bench_1b_config()
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    params = llama.init_params(cfg, g, device="cuda")
-    emit({"phase": "init_1b", "n_params": cfg.num_params(),
-          "layers": cfg.n_layers, "d_model": cfg.d_model})
+    if "kernels" in groups:
+        phase_kernel_vs_plain()
+        phase_bwd_kernel_vs_plain()
+        phase_bwd_determinism()
+        phase_bwd_routes()
     # each main path: counts set to 0 just before it, read just after
     by_path = {}
-    with torch.inference_mode():
-        by_path["scoring_1b"] = phase_scoring(cfg, params)
-        by_path["serving_1b"], greedy_tokens = phase_serving(cfg, params)
-        phase_prng_card_vs_cpu()
-        by_path["serving_1b_sampled"], sampled_tokens = phase_serving_sampled(
-            cfg, params)
-        by_path["serving_1b_spec"] = phase_serving_spec(cfg, params, {
-            "greedy": (RECORDS["serving_1b"]["engine_tokens_per_sec"],
-                       greedy_tokens),
-            "sampled": (RECORDS["serving_1b_sampled"]["engine_tokens_per_sec"],
-                        sampled_tokens)})
-        by_path["serving_1b_prefix"] = phase_serving_prefix(cfg, params)
-        by_path["serving_1b_disaggregated"] = phase_serving_disaggregated(
-            cfg, params, sampled_tokens)
-        by_path["serving_1b_server"] = phase_serving_server(greedy_tokens)
-        by_path["serving_1b_pool"] = phase_serving_pool(
-            cfg, params, greedy_tokens, sampled_tokens)
-        del params
-        torch.cuda.empty_cache()
-        phase_exactness_f32()
-        moe_cfg, moe_params = phase_init_1b_moe()
-        by_path["scoring_1b_moe"] = phase_scoring_1b_moe(moe_cfg, moe_params,
-                                                         peaks)
-        by_path["serving_1b_moe"] = phase_serving_1b_moe(moe_cfg, moe_params)
-        del moe_params
-        torch.cuda.empty_cache()
-        phase_moe_layer_card_vs_cpu(moe_cfg)
-        phase_exactness_f32_2layer_moe()
-        by_path["serving_moe_tiny_server"] = phase_serving_moe_tiny_server()
-    by_path["train_1b_moe"] = phase_train(
-        "train_1b_moe", train_config("1b", "flash_qkv", n_experts=8, top_k=2,
-                                     n_layers=8), 2, 2048,
-        expected(flash_fwd_sm90=8, flash_bwd_fused_sm90=8), peaks)
+    if "serving" in groups:
+        cfg = bench_1b_config()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(cfg, g, device="cuda")
+        emit({"phase": "init_1b", "n_params": cfg.num_params(),
+              "layers": cfg.n_layers, "d_model": cfg.d_model})
+        with torch.inference_mode():
+            by_path["scoring_1b"] = phase_scoring(cfg, params)
+            by_path["serving_1b"], greedy_tokens = phase_serving(cfg, params)
+            phase_prng_card_vs_cpu()
+            by_path["serving_1b_sampled"], sampled_tokens = phase_serving_sampled(
+                cfg, params)
+            by_path["serving_1b_spec"] = phase_serving_spec(cfg, params, {
+                "greedy": (RECORDS["serving_1b"]["engine_tokens_per_sec"],
+                           greedy_tokens),
+                "sampled": (RECORDS["serving_1b_sampled"]["engine_tokens_per_sec"],
+                            sampled_tokens)})
+            by_path["serving_1b_prefix"] = phase_serving_prefix(cfg, params)
+            by_path["serving_1b_disaggregated"] = phase_serving_disaggregated(
+                cfg, params, sampled_tokens)
+            by_path["serving_1b_server"] = phase_serving_server(greedy_tokens)
+            by_path["serving_1b_pool"] = phase_serving_pool(
+                cfg, params, greedy_tokens, sampled_tokens)
+            del params
+            torch.cuda.empty_cache()
+            phase_exactness_f32()
+    if "moe" in groups:
+        with torch.inference_mode():
+            moe_cfg, moe_params = phase_init_1b_moe()
+            by_path["scoring_1b_moe"] = phase_scoring_1b_moe(moe_cfg, moe_params,
+                                                             peaks)
+            by_path["serving_1b_moe"] = phase_serving_1b_moe(moe_cfg, moe_params)
+            del moe_params
+            torch.cuda.empty_cache()
+            phase_moe_layer_card_vs_cpu(moe_cfg)
+            phase_exactness_f32_2layer_moe()
+            by_path["serving_moe_tiny_server"] = phase_serving_moe_tiny_server()
+        by_path["train_1b_moe"] = phase_train(
+            "train_1b_moe", train_config("1b", "flash_qkv", n_experts=8, top_k=2,
+                                         n_layers=8), 2, 2048,
+            expected(flash_fwd_sm90=8, flash_bwd_fused_sm90=8), peaks)
     n350 = llama.llama2_size("350m").n_layers
     n1b = llama.llama2_size("1b").n_layers
-    by_path["train_350m"] = phase_train(
-        "train_350m", train_config("350m", "dots_flash_qkv_mlp"), 8, 2048,
-        expected(flash_fwd_sm90=n350, flash_bwd_fused_sm90=n350), peaks)
-    by_path["train_1b"] = phase_train(
-        "train_1b", train_config("1b", "flash_qkv"), 2, 2048,
-        expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b), peaks)
     long_cfg = train_config("350m", "dots_flash_qkv_mlp", n_layers=2,
                             max_seq_len=16384)
-    by_path["train_long_context"] = phase_train(
-        "train_long_context", long_cfg, 1, 16384,
-        expected(flash_fwd_sm90=2, flash_bwd_dq_sm90=2, flash_bwd_dkv_sm90=2), peaks)
-    phase_grad_exactness_f32()
-    phase_sr_card_vs_cpu()
-    phase_mesh_dryrun_card()
-    by_path["train_1b_mesh"] = phase_train_1b_mesh(
-        expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b))
-    by_path["seq_parallel_card"] = phase_seq_parallel_card()
-    by_path["pipeline_gpipe_card"] = phase_pipeline_gpipe_card()
-    by_path["pipeline_mpmd_1b"] = phase_pipeline_mpmd_1b()
-    phase_profile("profile_train_350m", train_config("350m", "dots_flash_qkv_mlp"),
-                  8, 2048)
-    phase_profile("profile_train_long_context", long_cfg, 1, 16384, steps=5)
-    launches = {}
-    for counts in by_path.values():
-        add_counts(launches, counts)
-    for kernel in SOURCES:
-        if launches.get(kernel, 0) == 0:
-            raise AssertionError(f"{kernel} was launched no time on the main "
-                                 f"paths: {by_path}")
+    if "train" in groups:
+        by_path["train_350m"] = phase_train(
+            "train_350m", train_config("350m", "dots_flash_qkv_mlp"), 8, 2048,
+            expected(flash_fwd_sm90=n350, flash_bwd_fused_sm90=n350), peaks)
+        by_path["train_1b"] = phase_train(
+            "train_1b", train_config("1b", "flash_qkv"), 2, 2048,
+            expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b), peaks)
+        by_path["train_long_context"] = phase_train(
+            "train_long_context", long_cfg, 1, 16384,
+            expected(flash_fwd_sm90=2, flash_bwd_dq_sm90=2, flash_bwd_dkv_sm90=2),
+            peaks)
+        phase_grad_exactness_f32()
+        phase_sr_card_vs_cpu()
+    if "mesh" in groups:
+        phase_mesh_dryrun_card()
+        by_path["train_1b_mesh"] = phase_train_1b_mesh(
+            expected(flash_fwd_sm90=n1b, flash_bwd_fused_sm90=n1b))
+        by_path["seq_parallel_card"] = phase_seq_parallel_card()
+    if "pipeline" in groups:
+        by_path["pipeline_gpipe_card"] = phase_pipeline_gpipe_card()
+        by_path["pipeline_mpmd_1b"] = phase_pipeline_mpmd_1b()
+    if "trainer" in groups:
+        by_path["train_1b_trainer"] = phase_train_1b_trainer()
+    if "profile" in groups:
+        phase_profile("profile_train_350m",
+                      train_config("350m", "dots_flash_qkv_mlp"), 8, 2048)
+        phase_profile("profile_train_long_context", long_cfg, 1, 16384, steps=5)
     emit({"phase": "launches_by_path", **by_path})
-    kernels = phase_kernels_line(launches, peaks, build_info)
+    if groups == set(GROUPS):
+        launches = {}
+        for counts in by_path.values():
+            add_counts(launches, counts)
+        for kernel in SOURCES:
+            if launches.get(kernel, 0) == 0:
+                raise AssertionError(f"{kernel} was launched no time on the main "
+                                     f"paths: {by_path}")
+        kernels = phase_kernels_line(launches, peaks, build_info)
     emit({"phase": "memory",
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-          "script_seconds": time.perf_counter() - t_start})
+          "script_seconds": time.perf_counter() - t_start,
+          "groups": sorted(groups)})
     print(smi.splitlines()[0], flush=True)
-    emit({"kernels": kernels})
+    if groups == set(GROUPS):
+        emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
 

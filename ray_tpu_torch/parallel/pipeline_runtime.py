@@ -48,76 +48,53 @@ returned for the caller to act on) and
 :class:`InProcessPipelineRuntime` is the default: each worker is a thread
 of this process (with a CUDA stream of its own when there is a card), a
 p2p lane is a FIFO of host arrays per (sender, receiver) pair, and the
-stage sum adds the replicas' trees in dp-rank order.
+stage sum adds the replicas' trees in dp-rank order. Its kill, abort,
+quiesce, respawn, reform and worker streams are the train gang's
+(``train/worker_group.py`` ``InProcessGang``), its fault specs' rule
+``train/fault_injection.py``'s.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import queue
-import threading
 import time
 import traceback
 
 import numpy as np
-import torch
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
+from ray_tpu_torch.train import fault_injection
+from ray_tpu_torch.train.fault_injection import InjectedFault
+from ray_tpu_torch.train.worker_group import (  # noqa: F401
+    POLL_S,
+    CollectiveAbortError,
+    CollectiveTimeoutError,
+    Epoch,
+    InertRecorder,
+    InProcessGang,
+    Member,
+    Reduce,
+    WorkerKilled,
+)
 from ray_tpu_torch.utils.trees import tree_map
 
-_POLL_S = 0.05  # how often a blocked call looks at its kill and abort flags
+
+def _tree_sum(trees: list):
+    total = trees[0]
+    for t in trees[1:]:
+        total = tree_map(lambda a, b: a + b, total, t)
+    return total
 
 
-class CollectiveTimeoutError(RuntimeError):
-    """A p2p receive or a stage sum outlived its timeout."""
-
-
-class CollectiveAbortError(RuntimeError):
-    """The collective group was aborted (the driver is quiescing)."""
-
-
-class InjectedFault(RuntimeError):
-    """A ``die`` action of an armed fault spec."""
-
-    def __init__(self, site: str, ctx: dict):
-        self.site, self.ctx = site, ctx
-        super().__init__(f"injected fault at {site}: {ctx}")
-
-
-class WorkerKilled(BaseException):
-    """Ends a killed worker's thread at its next runtime call. Not an
-    Exception, so that no handler in user code takes it for an error."""
-
-
-class InertRecorder:
-    """Drops every span."""
-
-    def record(self, cat, name, t0, t1, attrs=None):
-        pass
-
-
-def _fires(spec: dict, site: str, ctx: dict) -> bool:
-    """The matching rule of a fault spec (``site``, ``match``, ``after``,
-    ``count``), counting each occurrence that matches."""
-    if spec["site"] != site or any(ctx.get(k) != v
-                                   for k, v in spec.get("match", {}).items()):
-        return False
-    n = spec["_seen"]
-    spec["_seen"] = n + 1
-    after, count = spec.get("after", 0), spec.get("count", 0)
-    return n >= after and not (count and n >= after + count)
-
-
-class _Group:
-    """One epoch's collectives: the p2p lanes and each stage's sum."""
+class _Group(Epoch):
+    """One epoch's collectives: the p2p lanes and each stage's sum (the
+    trees of its replicas summed in dp-rank order)."""
 
     def __init__(self, epoch: int, sizes: list[int]):
-        self.epoch = epoch
-        self.aborted = threading.Event()
+        super().__init__(epoch)
         self.lanes: dict[tuple[int, int], queue.Queue] = {}
-        self.lock = threading.Lock()
-        self.sums = [_Sum(n) for n in sizes]
+        self.sums = [Reduce(n, _tree_sum) for n in sizes]
         self.bytes_sent = 0
 
     def lane(self, src: int, dst: int) -> queue.Queue:
@@ -125,52 +102,14 @@ class _Group:
             return self.lanes.setdefault((src, dst), queue.Queue())
 
 
-class _Sum:
-    """The trees of a stage's n replicas, summed in dp-rank order; every
-    replica gets the same sum."""
-
-    def __init__(self, n: int):
-        self.n = n
-        self.cond = threading.Condition()
-        self.slots: list = [None] * n
-        self.arrived = 0
-        self.generation = 0
-        self.last = None
-
-    def __call__(self, index, tree, check, deadline):
-        with self.cond:
-            gen = self.generation
-            self.slots[index] = tree
-            self.arrived += 1
-            if self.arrived == self.n:
-                total = self.slots[0]
-                for t in self.slots[1:]:
-                    total = tree_map(lambda a, b: a + b, total, t)
-                self.last = total
-                self.slots, self.arrived = [None] * self.n, 0
-                self.generation += 1
-                self.cond.notify_all()
-            while self.generation == gen:
-                check()
-                if time.monotonic() > deadline:
-                    raise CollectiveTimeoutError(
-                        f"stage sum: {self.arrived} of {self.n} replicas")
-                self.cond.wait(_POLL_S)
-            return self.last
-
-
 @dataclasses.dataclass(eq=False)
-class _Worker:
+class _Worker(Member):
     """One (stage, dp index) place and its current incarnation."""
 
-    stage: int
-    index: int
-    rank: int
-    restarts: int = 0
-    dead: bool = False
-    killed: bool = False
+    stage: int = 0
+    index: int = 0
+    rank: int = 0
     launch_id: int = 0
-    thread: threading.Thread | None = None
     session: "_Session | None" = None
 
 
@@ -186,19 +125,13 @@ class _Session:
         self._specs: list[dict] = []
 
     def arm(self, fault_specs) -> None:
-        """Arm fault specs (dicts: ``site``, ``match``, ``after``, ``count``,
-        ``action``: die, exit or drop) for this worker's ``fire`` calls."""
-        for spec in fault_specs:
-            if spec["action"] not in ("die", "exit", "drop"):
-                raise ValueError(f"unknown fault action {spec['action']!r}")
-        self._specs = [dict(s, _seen=0) for s in fault_specs]
+        """Arm fault specs (``train/fault_injection.py``'s dicts: ``site``,
+        ``match``, ``after``, ``count``, ``action``: die, exit or drop) for
+        this worker's ``fire`` calls."""
+        self._specs = fault_injection.prepare(fault_specs)
 
     def _check(self):
-        if self._worker.killed:
-            raise WorkerKilled()
-        if self._group.aborted.is_set():
-            raise CollectiveAbortError(
-                f"p2p group epoch {self._group.epoch} aborted")
+        self._rt.check(self._worker, self._group)
 
     def send(self, x, dst: int) -> None:
         self._check()
@@ -213,7 +146,7 @@ class _Session:
         while True:
             self._check()
             try:
-                return lane.get(timeout=_POLL_S)
+                return lane.get(timeout=POLL_S)
             except queue.Empty:
                 if time.monotonic() > deadline:
                     raise CollectiveTimeoutError(
@@ -232,7 +165,7 @@ class _Session:
     def fire(self, site: str, **ctx):
         self._check()
         for spec in self._specs:
-            if not _fires(spec, site, ctx):
+            if not fault_injection.matches(spec, site, ctx):
                 continue
             action = spec["action"]
             if action == "die":
@@ -247,21 +180,31 @@ class _Session:
         self._rt.record(cat, name, t0, t1, attrs)
 
 
-class InProcessPipelineRuntime:
-    """Workers are threads of this process (module docstring). ``recorder``
-    takes the spans (an object with ``record(cat, name, t0, t1, attrs)``;
-    inert when None). ``bytes_sent`` counts the bytes put on the p2p lanes
-    since ``start``."""
+class InProcessPipelineRuntime(InProcessGang):
+    """Workers are threads of this process (module docstring), on the
+    kill, abort, quiesce, respawn and reform logic of
+    ``train/worker_group.py``'s ``InProcessGang``. ``recorder`` takes the
+    spans (an object with ``record(cat, name, t0, t1, attrs)``; inert when
+    None). ``bytes_sent`` counts the bytes put on the p2p lanes since
+    ``start``."""
 
     def __init__(self, recorder=None):
-        self.recorder = recorder or InertRecorder()
+        super().__init__(recorder)
         self._workers: list[_Worker] = []
-        self._group: _Group | None = None
         self._sizes: list[int] = []
         self._results: queue.Queue = queue.Queue()
-        self._max_restarts = 0
-        self._name = ""
         self._bytes_before = 0
+
+    @property
+    def _members(self):
+        return self._workers
+
+    @property
+    def _group(self) -> _Group | None:
+        return self._epoch
+
+    def _new_epoch(self, epoch: int) -> _Group:
+        return _Group(epoch, self._sizes)
 
     @property
     def bytes_sent(self) -> int:
@@ -274,9 +217,9 @@ class InProcessPipelineRuntime:
         self._max_restarts = max_restarts
         self._bytes_before = 0
         offs = np.cumsum([0] + self._sizes[:-1])
-        self._workers = [_Worker(s, i, int(offs[s]) + i)
+        self._workers = [_Worker(stage=s, index=i, rank=int(offs[s]) + i)
                          for s, n in enumerate(self._sizes) for i in range(n)]
-        self._group = _Group(1, self._sizes)
+        self._epoch = self._new_epoch(1)
 
     def workers(self) -> list:
         return [(w.stage, w.index, w) for w in self._workers]
@@ -292,21 +235,14 @@ class InProcessPipelineRuntime:
         handle.launch_id += 1
         handle.session = _Session(self, handle, self._group, resume_path,
                                   resume_seq)
-        handle.thread = threading.Thread(
-            target=self._run, args=(handle, handle.launch_id, fn, config),
-            name=f"{self._name}-stage{handle.stage}-{handle.index}", daemon=True)
-        handle.thread.start()
+        handle.thread = self.spawn_thread(
+            handle, self._run, (handle, handle.launch_id, fn, config),
+            name=f"{self._name}-stage{handle.stage}-{handle.index}")
 
     def _run(self, handle: _Worker, launch_id: int, fn, config):
-        stream = torch.cuda.Stream() if torch.cuda.is_available() else None
         try:
-            with (contextlib.nullcontext() if stream is None
-                  else torch.cuda.stream(stream)):
-                try:
-                    fn(handle.session, config)
-                finally:
-                    if stream is not None:  # what the worker made is done
-                        stream.synchronize()
+            with self.on_stream(handle):  # done before the result is posted
+                fn(handle.session, config)
         except WorkerKilled:
             result = {"type": "error", "error_type": "WorkerDiedError",
                       "error": f"worker {handle.stage}/{handle.index} died",
@@ -335,45 +271,14 @@ class InProcessPipelineRuntime:
             return out
 
     def quiesce(self, timeout: float) -> list:
-        if self._group is not None:
-            self._group.aborted.set()
-        deadline = time.monotonic() + timeout
-        stuck = []
-        for w in self._workers:
-            if w.thread is not None:
-                w.thread.join(max(0.0, deadline - time.monotonic()))
-                if w.thread.is_alive():
-                    stuck.append((w.stage, w.index))
-        return stuck
-
-    def alive(self, handle: _Worker) -> bool:
-        return not handle.dead
-
-    def respawn(self, handle: _Worker) -> None:
-        if handle.restarts >= self._max_restarts:
-            raise RuntimeError(
-                f"{self._name}: stage {handle.stage} worker {handle.index} "
-                f"used its {self._max_restarts} restarts")
-        handle.restarts += 1
-        handle.dead = handle.killed = False
+        return [(w.stage, w.index) for w in super().quiesce(timeout)]
 
     def reform(self) -> int:
-        old = self._group
-        old.aborted.set()
-        self._bytes_before += old.bytes_sent
-        self._group = _Group(old.epoch + 1, self._sizes)
-        return self._group.epoch
-
-    def kill(self, handle: _Worker) -> None:
-        handle.killed = handle.dead = True
-
-    def record(self, cat, name, t0, t1, attrs=None) -> None:
-        self.recorder.record(cat, name, t0, t1, attrs)
+        self._bytes_before += self._group.bytes_sent
+        return super().reform()
 
     def shutdown(self, timeout: float = 10.0) -> list:
         """Abort and join every worker; returns those still running."""
         stuck = self.quiesce(timeout) if self._workers else []
         self._workers = []
         return stuck
-
-

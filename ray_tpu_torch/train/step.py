@@ -174,6 +174,7 @@ def make_train_step(
     compute_grad_norm: bool = True,
     grads_dtype: torch.dtype | None = None,
     device=None,
+    sync_grads: Callable[[dict], dict] | None = None,
 ):
     """Build the train step: (state, batch) -> (state, metrics).
 
@@ -187,7 +188,10 @@ def make_train_step(
     upcasts each one for the f32 master update. ``compute_grad_norm``
     adds the global L2 norm of the gradients, in f32. Its two halves are
     profiler ranges, "train_step.forward_backward" and
-    "train_step.optimizer".
+    "train_step.optimizer". ``sync_grads(grads) -> grads``, if given, takes
+    the gradient tree between the two (a data-parallel worker's
+    ``dcn_allreduce_grads``, as a JAX loop calls it between ``jax.grad``
+    and the update); the norm is taken after it.
 
     On a mesh (``mesh`` and the ``state_shardings`` that
     ``init_train_state`` returned) the loss runs under ``use_mesh``; a
@@ -230,6 +234,8 @@ def make_train_step(
                 grads = [g if tuple(g.placements) == sh.placements
                          else g.redistribute(sh.mesh, sh.placements)
                          for g, sh in zip(grads, grad_shardings)]
+        if sync_grads is not None:
+            grads = tree_leaves(sync_grads(tree_unflatten(state.params, grads)))
         with record_function("train_step.optimizer"):
             opt_state = optimizer.update(tree_unflatten(state.params, grads),
                                          state.opt_state, state.params)

@@ -439,3 +439,92 @@ def dryrun_from_jax_rank(rank, world, layouts, inputs):
             {"inputs": toks[:, :-1].contiguous(),
              "targets": toks[:, 1:].contiguous()}))
     return losses
+
+
+# --------------------------------------------------------------------------
+# Shard-local checkpoints (tests/test_torch_train_checkpoint.py)
+# --------------------------------------------------------------------------
+
+def checkpoint_rank(rank, world, workdir, jax_path, jax_w):
+    """The shard-local cases of tests/test_checkpoint_shardlocal.py, each
+    of the 8 ranks a process of a dp=8 mesh; and a sharded checkpoint that
+    JAX wrote (one writer, 8 pieces), restored shard by shard."""
+    import os
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.sharding import spec_to_placements
+    from ray_tpu_torch.train import checkpoint as ck
+
+    mesh = build_mesh(MeshConfig(dp=8))
+    dp = active_mesh(mesh)
+    rows = NamedSharding(dp, (Shard(0),))
+    out: dict = {}
+
+    def roundtrip():
+        big = torch.arange(8 * 64 * 32, dtype=torch.float32).reshape(8 * 64, 32)
+        state = {"w": distribute(big, rows), "step": 7,
+                 "scalar": distribute(torch.tensor(3.5), NamedSharding(
+                     dp, (Replicate(),)))}
+        path = os.path.join(workdir, "roundtrip")
+        ck.save_state(state, path)
+        dist.barrier()
+        stats = {}
+        got = ck.restore_state(path, mesh=mesh, stats=stats)
+        return {"w": _local(got["w"]), "step": got["step"],
+                "scalar": float(_local(got["scalar"])),
+                "local_shape": list(got["w"].to_local().shape),
+                "bytes_read": stats["bytes_read"],
+                "files": sorted(os.listdir(path))}
+
+    def read_fraction():
+        big = torch.arange(8 * 64 * 32, dtype=torch.float32).reshape(8 * 64, 32)
+        path = os.path.join(workdir, "fraction")
+        ck.save_state({"w": distribute(big, rows)}, path)
+        dist.barrier()
+        reader = ck._ShardReader(path)
+        index = local_slices(big.shape, dp, rows.placements)
+        shard = ck._load_device_shard(reader, 0, big.shape, np.float32, index)
+        reader.close()
+        return {"shape": list(shard.shape), "bytes_read": reader.bytes_read,
+                "nbytes": big.numel() * 4, "block": shard}
+
+    def reshaped():
+        big = torch.arange(8 * 16 * 64, dtype=torch.float32).reshape(8 * 16, 64)
+        path = os.path.join(workdir, "reshaped")
+        ck.save_state({"w": distribute(big, rows)}, path)
+        dist.barrier()
+        mesh42 = build_mesh(MeshConfig(dp=4, tp=2))
+        sh42 = NamedSharding(active_mesh(mesh42),
+                             spec_to_placements(("dp", "tp"), mesh42))
+        got = ck.restore_state(path, mesh=mesh42, shardings={"w": sh42})
+        return {"w": _local(got["w"]), "placements": [str(p) for p in
+                                                      got["w"].placements],
+                "local_shape": list(got["w"].to_local().shape)}
+
+    def writers_cover():
+        v = torch.arange(64, dtype=torch.int32)
+        path = os.path.join(workdir, "cover")
+        ck.save_state({"v": distribute(v, rows)}, path)
+        dist.barrier()
+        with open(os.path.join(path, "meta.msgpack"), "rb") as f:
+            meta = ck.unpackb(f.read())
+        got = ck.restore_state(path, device="cpu")
+        return {"v": got["v"].numpy(), "n_writers": meta["n_writers"],
+                "files": sorted(os.listdir(path))}
+
+    def jax_written():
+        stats = {}
+        got = ck.restore_state(jax_path, shardings={
+            "w": rows, "b": NamedSharding(dp, (Replicate(),))}, stats=stats)
+        block = local_slices(jax_w.shape, dp, rows.placements)
+        return {"w_block": got["w"].to_local().numpy(),
+                "want_block": jax_w[block], "b": _local(got["b"]),
+                "bytes_read": stats["bytes_read"]}
+
+    for name, fn in (("roundtrip", roundtrip), ("read_fraction", read_fraction),
+                     ("reshaped", reshaped), ("writers_cover", writers_cover),
+                     ("jax_written", jax_written)):
+        _guard(out, name, fn)
+        dist.barrier()
+    return out

@@ -58,6 +58,12 @@ def test_port_files_exist():
             "ray_tpu_torch/parallel/mpmd_pipeline.py",
             "ray_tpu_torch/parallel/pipeline_runtime.py",
             "ray_tpu_torch/train/checkpoint.py",
+            "ray_tpu_torch/train/session.py",
+            "ray_tpu_torch/train/dcn.py",
+            "ray_tpu_torch/train/fault_injection.py",
+            "ray_tpu_torch/train/worker_group.py",
+            "ray_tpu_torch/train/backend_executor.py",
+            "ray_tpu_torch/train/trainer.py",
             "tests/test_torch_dist_ranks.py"} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
 
@@ -100,7 +106,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         llm_pool.LLMPool()
 
 
-def test_train_entry_points_raise_without_a_card(monkeypatch):
+def test_train_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.LlamaConfig.tiny()
     opt = train.fused_adamw()
@@ -111,3 +117,7 @@ def test_train_entry_points_raise_without_a_card(monkeypatch):
         train.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.init_params(cfg, master=True)
+    path = str(tmp_path / "ck")
+    train.save_state({"w": torch.ones(2)}, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.restore_state(path)
