@@ -44,7 +44,14 @@ the train runtime's path: a Trainer of two data-parallel workers (threads
 with a CUDA stream each) running the Llama-1B step, gradients averaged
 through the host every step, rank 0 saving the train state after step 2,
 worker 1 killed in step 3 and resumed in place from that checkpoint,
-held to the same run without the fault. Every
+held to the same run without the fault. Then the RL layer: the
+learners' updates (PPO, IMPALA, APPO, BC) and the vision module on the
+card held to the CPU, the port's PPO on a corridor env, and the
+actor-learner loop at Llama-1B (rollout threads streaming sampled
+requests through a one-replica LLMPool, a learner of Trainer(backend=
+"dcn") scoring them through the flash forward and backward, its
+weights published back each iteration), with its buffer's conservation
+and the learner's logprobs against the engine's at lag 0. Every
 bf16 head_dim-128
 flash call on those paths must go
 through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
@@ -64,6 +71,7 @@ prints no kernels line.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import logging
 import os
@@ -89,6 +97,8 @@ from ray_tpu_torch.parallel import (MpmdPipeline, StageSpec, launch,
                                     pipeline_apply, pipeline_stages)
 from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, use_mesh
 from ray_tpu_torch.parallel.pipeline_runtime import InProcessPipelineRuntime
+from ray_tpu_torch.rl import actor_learner, appo, bc, impala, ppo, rl_module
+from ray_tpu_torch.rl import learner as rl_learner
 from ray_tpu_torch.train import checkpoint as ckpt_mod
 from ray_tpu_torch.train import dcn, fault_injection
 from ray_tpu_torch.train.worker_group import InProcessTrainRuntime
@@ -96,7 +106,8 @@ from ray_tpu_torch.serve import llm as serve_llm
 from ray_tpu_torch.serve import llm_pool
 from ray_tpu_torch.serve import runtime as serve_runtime
 from ray_tpu_torch.utils import prng
-from ray_tpu_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
+from ray_tpu_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
+                                       tree_unflatten)
 
 SEED = 0
 # Datasheet peaks (dense): bf16 tensor-core FLOP/s and HBM bytes/s.
@@ -107,9 +118,10 @@ PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 # both sides run full f32 (TF32 off, set below).
 TOL = {torch.bfloat16: dict(out=2e-2, lse=1e-3),
        torch.float32: dict(out=1e-4, lse=1e-4)}
-# (name, B, Hq, Hkv, T, S, D, causal, dtype); the first four are the
+# (name, B, Hq, Hkv, T, S, D, causal, dtype); the first five are the
 # main paths' (1B scoring, 350m training, long-context training, the 1B
-# pipelines' microbatch of one row). bf16 at
+# pipelines' microbatch of one row, the RL learner's batch of 8
+# trajectories of 64 + 64 tokens). bf16 at
 # D=128 takes flash_fwd_sm90 (the edges of its 128-row q tiles and
 # 128-key tiles below), the rest flash_fwd.
 FLASH_CASES = [
@@ -117,6 +129,7 @@ FLASH_CASES = [
     ("main_350m_train", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16),
     ("long_ctx_350m", 1, 8, 8, 16384, 16384, 128, True, torch.bfloat16),
     ("pipeline_1b", 1, 16, 8, 2048, 2048, 128, True, torch.bfloat16),
+    ("rl_1b", 8, 16, 8, 128, 128, 128, True, torch.bfloat16),
     ("multi_tile_s4096", 1, 16, 8, 4096, 4096, 128, True, torch.bfloat16),
     ("decode_t1_s300", 2, 16, 8, 1, 300, 128, True, torch.bfloat16),
     ("empty_rows_t64_s32", 2, 16, 8, 64, 32, 128, True, torch.bfloat16),
@@ -147,6 +160,7 @@ BWD_CASES = [
     ("main_350m", 8, 8, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
     ("gqa_1b", 2, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
     ("pipeline_1b", 1, 16, 8, 2048, 2048, 128, True, torch.bfloat16, "fused"),
+    ("rl_1b", 8, 16, 8, 128, 128, 128, True, torch.bfloat16, "fused"),
     ("ragged_gqa2_t333_s777", 2, 8, 4, 333, 777, 128, True, torch.bfloat16, "fused"),
     ("ragged_noncausal_gqa4", 1, 8, 2, 333, 777, 128, False, torch.bfloat16, "fused"),
     ("empty_rows_gqa4_t300_s100", 1, 8, 2, 300, 100, 128, True, torch.bfloat16, "fused"),
@@ -207,6 +221,10 @@ NEW_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dq_sm90",
 # handler threads submit after the swap has landed
 SERVING_REQUESTS = 16
 SERVER_REQUESTS = 32
+# one wave of the 8 slots for the speculative and the MoE engine phases
+# (they served 16, and 32 before that), to make room for the RL group in
+# the time limit; every check of theirs holds over these 8
+SHORT_REQUESTS = 8
 RECORDS = {}  # the last line emitted by each phase
 T_IMPORT = T_LAST = time.perf_counter()
 
@@ -833,8 +851,9 @@ def phase_serving_sampled(cfg, params):
 def phase_serving_spec(cfg, params, plain):
     """The same requests, greedy and then sampled, with spec_depth 4 and the
     default draft (half the layers, no head), beside plain decoding's
-    tokens/s and tokens (`plain`: mode -> (tokens/s, tokens))."""
-    warm, prompts = serving_requests()
+    tokens/s and tokens (`plain`: mode -> (tokens/s, tokens)), over the
+    first SHORT_REQUESTS requests."""
+    warm, prompts = serving_requests(SHORT_REQUESTS)
     counts = {}
     for mode in ("greedy", "sampled"):
         lanes = [dict(SAMPLED, seed=1000 + i) if mode == "sampled" else {}
@@ -1770,8 +1789,8 @@ def phase_serving_1b_moe(cfg, params):
     flash_fwd_sm90), then sampled (temperature 0.8, top_p 0.95, seed 1000
     + i) twice, the two runs equal bit for bit (tokens and logprobs).
     Tokens/s, pump times and launches per decode step beside the dense
-    1B's of this run."""
-    warm, prompts = serving_requests()
+    1B's of this run. The first SHORT_REQUESTS requests."""
+    warm, prompts = serving_requests(SHORT_REQUESTS)
     eng = serving_engine(cfg, params)
     serve(eng, [warm], 32, [{}])  # untimed
     fa.reset_launch_count()
@@ -3075,6 +3094,326 @@ def phase_train_1b_trainer():
     return counts
 
 
+class Corridor:
+    """tests/test_rl.py's corridor env: 5 steps right to the goal (+1),
+    -0.05 a step, obs [pos / 5, 1]."""
+
+    N = 5
+
+    def __init__(self):
+        self.pos = 0
+
+    def reset(self):
+        self.pos = 0
+        return self._obs()
+
+    def _obs(self):
+        return np.array([self.pos / self.N, 1.0], np.float32)
+
+    def step(self, action):
+        self.pos = max(0, self.pos + (1 if action == 1 else -1))
+        done = self.pos >= self.N
+        return self._obs(), (1.0 if done else -0.05), done, {}
+
+
+# the largest share of a leaf whose params adam_card_vs_cpu holds only to
+# the steps' bound (tests/test_torch_rl.py's assert_adam_step_close)
+FLOOR_SHARE = 0.02
+
+
+def adam_card_vs_cpu(card_params, cpu_params, card_grads, cpu_grads, lr):
+    """Card against CPU after len(grads) Adam steps from the same weights
+    (f32, TF32 off). Each step's gradient: rtol 1e-5, atol 1e-5 x the
+    leaf's largest (sums in another order leave an absolute floor). The
+    params: rtol 1e-5, atol 1e-7 wherever every step's gradient stands
+    above that floor (|g| > 1e-4 x the leaf's largest) or is 0 at every
+    step (the element does not move: BC trains no value head); elsewhere
+    Adam's g / (|g| + eps) follows the noise's sign, and the params are
+    held to the steps' bound, |delta| <= 2 lr a step, on at most 2% of
+    any leaf (FLOOR_SHARE), as the CPU tests hold them. Returns (ok, max
+    grad error over the leaf's largest, max param error where held at
+    rtol, elements below the floor, their largest share of a leaf)."""
+    ok, grad_err, param_err, floor, share = True, 0.0, 0.0, 0, 0.0
+    held = {}
+    for gc, gk in zip(card_grads, cpu_grads):
+        for path, a, b in zip(tree_paths(gk), tree_leaves(gc), tree_leaves(gk)):
+            a, b = a.detach().cpu(), b.detach()
+            scale = float(b.abs().max()) or 1.0
+            ok &= torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale)
+            grad_err = max(grad_err, float((a - b).abs().max()) / scale)
+            live, still = held.get(path, (True, True))
+            held[path] = (live & (b.abs() > 1e-4 * scale), still & (b == 0))
+    steps = len(card_grads)
+    for path, a, b in zip(tree_paths(cpu_params), tree_leaves(card_params),
+                          tree_leaves(cpu_params)):
+        a, b = a.detach().cpu(), b.detach()
+        live, still = held[path]
+        m = live | still
+        ok &= torch.allclose(a[m], b[m], rtol=1e-5, atol=1e-7)
+        ok &= bool(((a - b).abs() <= 2 * lr * steps).all())
+        if m.any():
+            param_err = max(param_err, float((a[m] - b[m]).abs().max()))
+        floor += int((~m).sum())
+        share = max(share, float((~m).float().mean()))
+    ok &= share <= FLOOR_SHARE
+    return bool(ok), grad_err, param_err, floor, share
+
+
+def first_step_grads(state):
+    """The gradient of Adam's first step from zero moments: mu / (1 - b1)."""
+    return tree_map(lambda m: m / 0.1, state.mu)
+
+
+def phase_rl_card_vs_cpu():
+    """The RL learners' updates on the card against the CPU, from the same
+    weights (each seeded init drawn on the CPU) and the same seeded
+    batch, in f32 with TF32 off: one Learner.update (PPO loss, 1 epoch, 2
+    minibatches of 128 rows), one IMPALA and one APPO update on a
+    [T=32, N=4] batch, one BC step, each held by adam_card_vs_cpu with
+    their metrics at rtol 1e-5; and VisionPolicyModule.forward_train on
+    an 11x13x3 batch (SAME padding on both sides, then at the end), at
+    rtol 1e-5, atol 1e-6."""
+    rng = np.random.RandomState(SEED + 1200)
+    rows = 256
+    ppo_batch = {"obs": rng.randn(rows, 8).astype(np.float32),
+                 "actions": rng.randint(0, 4, rows).astype(np.int32),
+                 "logp": -rng.rand(rows).astype(np.float32) * 1.5,
+                 "advantages": rng.randn(rows).astype(np.float32),
+                 "returns": rng.randn(rows).astype(np.float32)}
+    ppo_batch = rl_learner.normalize_advantages(ppo_batch)
+    results, ok_all = {}, True
+    # PPO learner: run_sgd with a recording grad hook is Learner.update
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lrn = rl_learner.Learner(8, 4, lr=3e-4, device=dev)
+        grads = []
+        metrics = rl_learner.run_sgd(
+            lrn, ppo_batch, minibatches=2, epochs=1, shuffle_seed=0,
+            grad_hook=lambda g, n: grads.append(g) or g)
+        runs[dev] = (lrn, grads, metrics)
+    ok, ge, pe, fl, fs = adam_card_vs_cpu(runs["cuda"][0].params,
+                                      runs["cpu"][0].params, runs["cuda"][1],
+                                      runs["cpu"][1], 3e-4)
+    mets = {k: (runs["cuda"][2][k], runs["cpu"][2][k]) for k in runs["cpu"][2]}
+    ok &= all(np.isclose(a, b, rtol=1e-5, atol=0) for a, b in mets.values())
+    results["learner_update"] = dict(ok=ok, grad_err_over_max=ge,
+                                     param_max_abs_err=pe, below_floor=fl,
+                                     below_floor_share=fs,
+                                     metrics=mets)
+    ok_all &= ok
+    # IMPALA and APPO: one landed batch each
+    batch = {"obs": rng.randn(32, 4, 2).astype(np.float32),
+             "actions": rng.randint(0, 2, (32, 4)).astype(np.int32),
+             "logp": -rng.rand(32, 4).astype(np.float32) * 1.2,
+             "values": rng.randn(32, 4).astype(np.float32),
+             "rewards": rng.randn(32, 4).astype(np.float32),
+             "dones": rng.rand(32, 4) < 0.1,
+             "last_values": rng.randn(4).astype(np.float32)}
+    for name, config in (("impala", impala.IMPALAConfig), ("appo", appo.APPOConfig)):
+        algos, mets = {}, {}
+        for dev in ("cuda", "cpu"):
+            algo = config(env_creator=Corridor, obs_dim=2, n_actions=2,
+                          num_env_runners=1, num_envs_per_runner=2,
+                          rollout_steps=8, lr=1e-2).build(device=dev)
+            try:
+                mets[dev] = algo._apply_batch(algo.batch_to_device(batch))
+            finally:
+                algo.stop()
+            algos[dev] = algo
+        ok, ge, pe, fl, fs = adam_card_vs_cpu(
+            algos["cuda"].params, algos["cpu"].params,
+            [first_step_grads(algos["cuda"].opt_state)],
+            [first_step_grads(algos["cpu"].opt_state)], 1e-2)
+        m = {k: (float(mets["cuda"][k]), float(mets["cpu"][k]))
+             for k in mets["cpu"]}
+        ok &= all(np.isclose(a, b, rtol=1e-5, atol=0) for a, b in m.values())
+        results[f"{name}_update"] = dict(ok=ok, grad_err_over_max=ge,
+                                         param_max_abs_err=pe, below_floor=fl,
+                                         below_floor_share=fs,
+                                         metrics=m)
+        ok_all &= ok
+    # BC: one step
+    obs = rng.randn(128, 4).astype(np.float32)
+    acts = rng.randint(0, 2, 128)
+    bcs, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        algo = bc.BCConfig(lr=1e-3).build(device=dev)
+        algo.params, algo.opt_state, loss, acc = algo._update(
+            algo.params, algo.opt_state, torch.from_numpy(obs).to(dev),
+            torch.from_numpy(acts).to(dev))
+        bcs[dev], losses[dev] = algo, (float(loss), float(acc))
+    ok, ge, pe, fl, fs = adam_card_vs_cpu(
+        bcs["cuda"].params, bcs["cpu"].params,
+        [first_step_grads(bcs["cuda"].opt_state)],
+        [first_step_grads(bcs["cpu"].opt_state)], 1e-3)
+    ok &= bool(np.isclose(losses["cuda"][0], losses["cpu"][0], rtol=1e-5, atol=0))
+    ok &= losses["cuda"][1] == losses["cpu"][1]
+    results["bc_step"] = dict(ok=ok, grad_err_over_max=ge, param_max_abs_err=pe,
+                              below_floor=fl, below_floor_share=fs,
+                              loss_acc=losses)
+    ok_all &= ok
+    # the vision module's forward
+    mod = rl_module.VisionPolicyModule((11, 13, 3), 6)
+    params = mod.init(SEED + 1201, device="cpu")
+    x = torch.from_numpy(rng.rand(16, 11, 13, 3).astype(np.float32))
+    want = mod.forward_train(params, x)
+    got = mod.forward_train(
+        {k: {kk: vv.cuda() for kk, vv in v.items()} for k, v in params.items()},
+        x.cuda())
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in want}
+    ok = all(torch.allclose(got[k].cpu(), want[k], rtol=1e-5, atol=1e-6)
+             for k in want)
+    results["vision_forward_train"] = dict(ok=ok, max_abs_err=errs)
+    ok_all &= ok
+    emit({"phase": "rl_card_vs_cpu", "tol": {"rtol": 1e-5, "param_atol": 1e-7,
+                                             "grad_atol_over_max": 1e-5,
+                                             "below_floor_share_max": FLOOR_SHARE,
+                                             "vision_atol": 1e-6},
+          **results, "card": card(), "ok": bool(ok_all)})
+    if not ok_all:
+        raise AssertionError(f"rl_card_vs_cpu: {results}")
+
+
+def phase_rl_ppo_corridor():
+    """The port's PPO for 3 iterations on the corridor env: 2 in-process
+    runners on the CPU, the learner on the card (128 steps a runner an
+    iteration, 4 epochs x 4 minibatches). Prints each iteration's seconds
+    and the episode-return curve; every metric must be finite."""
+    algo = ppo.PPOConfig(env_creator=Corridor, obs_dim=2, n_actions=2,
+                         num_env_runners=2, lr=5e-3,
+                         entropy_coeff=0.0).build(device="cuda")
+    seconds, curve, hist = [], [], []
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            m = algo.train()
+            seconds.append(time.perf_counter() - t0)
+            curve.append(m["episode_return_mean"])
+            hist.append(m)
+    finally:
+        algo.stop()
+    ok = (len(hist) == 3 and algo.learner.device.type == "cuda"
+          and all(np.isfinite(v) for m in hist for v in m.values()))
+    emit({"phase": "rl_ppo_corridor", "runners": 2, "runner_device": "cpu",
+          "learner_device": "cuda", "rollout_steps": 128,
+          "seconds_per_iteration": seconds, "episode_return_mean": curve,
+          "metrics": hist, "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"rl_ppo_corridor: {hist}")
+
+
+AL_ITERATIONS = 3
+AL_MEAN_RATIO_TOL = 0.05
+
+
+def phase_actor_learner_1b():
+    """The RL slice's path at full width: ActorLearnerLoop at Llama-1B
+    (vocab 32128, bf16 serving, f32 learner masters), max_len 160, one
+    pool replica with 8 slots and prompt bucket 64; 8 rollout actors (the
+    loop's threads) stream prompts of 64 sampled to 64 new tokens
+    (temperature 1); 8 trajectories an iteration, 3 iterations, one
+    learner (Trainer backend "dcn" on the in-process gang), sync mode;
+    default_reward over the model's vocabulary. Checks: no error, 3
+    reports and 3 publishes, the pool on version 3; buffer conservation
+    and exact delivery (every rollout one add, rejection or duplicate;
+    added = queued + consumed + dropped; no seq consumed twice); at lag 0
+    each iteration's mean importance ratio within AL_MEAN_RATIO_TOL of 1
+    (the learner's flash forward at T=128 against the engine's decode
+    path, both bf16); 22 flash_fwd_sm90 and 22 flash_bwd_fused_sm90 a
+    learner step and no other attention kernel."""
+    ck_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "actor_learner_1b")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    cfg = actor_learner.ActorLearnerConfig(
+        model_size="1b", max_len=160, prompt_len=64, max_new=64,
+        n_rollout_actors=8, trajectories_per_iter=8, iterations=AL_ITERATIONS,
+        num_learners=1, sync_mode=True, storage_path=ck_root,
+        reward_fn=functools.partial(actor_learner.default_reward,
+                                    vocab_size=actor_learner.VOCAB_SIZE))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = actor_learner.ActorLearnerLoop(
+        cfg, pool_kwargs=dict(slots=8, min_replicas=1, max_replicas=1),
+        device="cuda")
+    build_s = time.perf_counter() - t0
+    try:
+        fa.reset_launch_count()
+        t1 = time.perf_counter()
+        out = loop.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        counts = fa.launch_counts()
+        adopted = loop.pool.wait_version(AL_ITERATIONS, timeout=60.0)
+        pool_stats = loop.pool.stats()
+    finally:
+        loop.shutdown()
+        shutil.rmtree(ck_root, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    hist = out["result"].metrics_history
+    st, ro = out["buffer"], out["rollouts"]
+    n1b = llama.llama2_size("1b").n_layers
+    want = expected(flash_fwd_sm90=n1b * len(hist),
+                    flash_bwd_fused_sm90=n1b * len(hist))
+    ratios = [m["mean_ratio"] for m in hist]
+    by_version = out["rollout_by_version"]
+    iters = []
+    for m, pub in zip(hist, out["publish_timing"]):
+        ts = m["timing_s"]
+        roll = by_version.get(m["version"] - 1, {})
+        iters.append({
+            "iteration": m["iteration"],
+            "rollout_s": roll.get("seconds"),
+            "rollout_tokens": roll.get("tokens"),
+            "learner_claim_wait_s": ts["claim"],
+            "learner_forward_backward_ms": 1e3 * ts["forward_backward"],
+            "dcn_allreduce_grads_ms": 1e3 * ts["allreduce"],
+            "update_ms": 1e3 * ts["update"],
+            "checkpoint_s": ts["checkpoint"],
+            "publish_put_s": ts["publish_put"],
+            "publish_s": pub["publish_s"], "adoption_s": pub["adoption_s"],
+            "mean_reward": m["mean_reward"], "mean_ratio": m["mean_ratio"],
+            "logp_gap_mean": m["logp_gap_mean"],
+            "logp_gap_max": m["logp_gap_max"], "tokens": m["tokens"],
+            "entropy": m["entropy"], "loss": m["loss"]})
+    roll_s = sum(by_version[v]["seconds"] for v in range(len(hist)))
+    roll_tok = sum(by_version[v]["tokens"] for v in range(len(hist)))
+    ok = (out["error"] is None and len(hist) == AL_ITERATIONS
+          and out["publishes"] == AL_ITERATIONS and adopted
+          and out["final_version"] == AL_ITERATIONS
+          and ro["trajectories"] == st["added"] + st["rejected_stale"] + st["dups"]
+          and st["added"] == st["queued"] + st["consumed"] + st["dropped_stale"]
+          and len(set(st["consumed_seqs"])) == st["consumed"]
+          and st["consumed"] == cfg.trajectories_per_iter * AL_ITERATIONS
+          and all(abs(r - 1.0) <= AL_MEAN_RATIO_TOL for r in ratios)
+          and all(np.isfinite(m["loss"]) for m in hist)
+          and counts == want)
+    emit({"phase": "actor_learner_1b", "model": "1b", "vocab": 32128,
+          "n_params": serve_llm.model_config("1b", max_len=160,
+                                             vocab_size=32128).num_params(),
+          "prompt_len": 64, "max_new": 64, "rollout_actors": 8,
+          "trajectories_per_iter": 8, "iterations": AL_ITERATIONS,
+          "sync_mode": True, "error": out["error"], "resumes": out["resumes"],
+          "per_iteration": iters, "rewards": out["rewards"],
+          "mean_ratio_tol": AL_MEAN_RATIO_TOL,
+          "rollout_tokens_per_s": roll_tok / roll_s if roll_s else None,
+          "publishes": out["publishes"], "final_version": out["final_version"],
+          "pool_adopted_final": adopted,
+          "pool_weights_version": pool_stats.get("weights_version"),
+          "buffer": {k: v for k, v in st.items() if k != "consumed_seqs"},
+          "rollouts": ro, "launches": counts, "expected_launches": want,
+          "build_s": build_s, "run_s": run_s, "max_allocated_gb": peak_gb,
+          "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"actor_learner_1b: error {out['error']}, "
+                             f"ratios {ratios}, buffer {st}, rollouts {ro}, "
+                             f"launches {counts} (expected {want}), "
+                             f"adopted {adopted}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def sdpa_bwd_ms(q, k, v, do):
     """The library's backward alone: scaled_dot_product_attention forward
     + backward minus its forward, on the same inputs (timed only)."""
@@ -3179,6 +3518,16 @@ MAIN_SHAPES = {
 }
 
 
+# the RL learner's shape (actor_learner_1b: 8 trajectories of 64 + 64
+# tokens at Llama-1B), timed beside each main shape of its two kernels
+RL_SHAPES = {"flash_fwd_sm90": (8, 16, 8, 128, 128, 128),
+             "flash_bwd_fused_sm90": (8, 16, 8, 128, 128, 128)}
+# what a kernels-line entry keeps of a timing at a further shape
+SHAPE_KEYS = ("shape", "kernel_ms", "kernel_graph_ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "library_graph_ms", "library_fwd_bwd_ms",
+              "library_fwd_ms", "share_of_bound", "max_abs_err")
+
+
 def phase_kernels_line(launches, peaks, build_info):
     """One entry per main-path kernel: its launches on the main paths, its
     time, error, bound, plain and library times, share of bound, and
@@ -3200,10 +3549,11 @@ def phase_kernels_line(launches, peaks, build_info):
         if kernel == "flash_fwd_sm90":
             train_row = time_kernel(kernel, MAIN_SHAPES["flash_bwd_fused_sm90"],
                                     peaks, SEED + 410)
-            entry["train_350m"] = {k: train_row[k] for k in (
-                "shape", "kernel_ms", "kernel_graph_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "library_graph_ms", "share_of_bound",
-                "max_abs_err")}
+            entry["train_350m"] = {k: train_row[k] for k in SHAPE_KEYS
+                                   if k in train_row}
+        if kernel in RL_SHAPES:
+            rl_row = time_kernel(kernel, RL_SHAPES[kernel], peaks, SEED + 420 + i)
+            entry["rl_1b"] = {k: rl_row[k] for k in SHAPE_KEYS if k in rl_row}
         kernels.append(entry)
     return kernels
 
@@ -3229,6 +3579,7 @@ GROUPS = {
     "mesh": ("mesh_dryrun_card", "train_1b_mesh", "seq_parallel_card"),
     "pipeline": ("pipeline_gpipe_card", "pipeline_mpmd_1b"),
     "trainer": ("train_1b_trainer",),
+    "rl": ("rl_card_vs_cpu", "rl_ppo_corridor", "actor_learner_1b"),
     "profile": ("profile_train_350m", "profile_train_long_context"),
 }
 
@@ -3330,6 +3681,10 @@ def main() -> None:
         by_path["pipeline_mpmd_1b"] = phase_pipeline_mpmd_1b()
     if "trainer" in groups:
         by_path["train_1b_trainer"] = phase_train_1b_trainer()
+    if "rl" in groups:
+        phase_rl_card_vs_cpu()
+        phase_rl_ppo_corridor()
+        by_path["actor_learner_1b"] = phase_actor_learner_1b()
     if "profile" in groups:
         phase_profile("profile_train_350m",
                       train_config("350m", "dots_flash_qkv_mlp"), 8, 2048)

@@ -9,6 +9,9 @@ moments), which is JAX's ``donate_state`` without the copy. DTensor
 leaves (a train state on a mesh) are updated on each rank's local
 blocks, the rounding of each element seeded by its index in the whole
 leaf, so a sharded update gives the one-device update's bits.
+
+``adam`` is optax.adam (the JAX RL learners' optimizer) in optax's order
+of operations, functional like optax, for the port's RL layer.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.parallel.sharding import local_slices
-from ray_tpu_torch.utils.trees import tree_leaves
+from ray_tpu_torch.utils.trees import tree_leaves, tree_map
 
 _M32 = 0xFFFFFFFF
 
@@ -188,3 +191,56 @@ def fused_adamw(
     return FusedAdamW(learning_rate, b1, b2, eps, weight_decay, mu_dtype,
                       nu_dtype)
 
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: int  # steps taken (optax: int32 scalar)
+    mu: dict  # first moment, same tree as the params
+    nu: dict  # second moment
+
+
+class Adam:
+    """``optax.adam`` (``scale_by_adam`` then the scale by -lr) as plain
+    torch ops on trees of tensors, in optax's order of operations:
+    ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*g**2 + b2*nu``, each divided
+    by its bias correction ``1 - b**count`` (in f32, as JAX computes it),
+    ``u = mu_hat / (sqrt(nu_hat + eps_root) + eps) * -lr``. Functional,
+    as optax is: ``update`` returns new updates and a new state, and
+    :func:`apply_updates` adds the updates to the params."""
+
+    def __init__(self, learning_rate: float, b1: float, b2: float,
+                 eps: float, eps_root: float):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
+
+    def init(self, params: dict) -> AdamState:
+        return AdamState(0, tree_map(torch.zeros_like, params),
+                         tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: AdamState, params=None):
+        b1, b2 = self.b1, self.b2
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, n: (1 - b2) * g ** 2 + b2 * n, grads,
+                      state.nu)
+        count = state.count + 1
+        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        lr = -float(self.learning_rate)
+        updates = tree_map(
+            lambda m, n: (m / c1) / (torch.sqrt(n / c2 + self.eps_root)
+                                     + self.eps) * lr, mu, nu)
+        return updates, AdamState(count, mu, nu)
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, eps_root: float = 0.0) -> Adam:
+    """``optax.adam`` with its defaults, for the RL learners."""
+    return Adam(learning_rate, b1, b2, eps, eps_root)
+
+
+@torch.no_grad()
+def apply_updates(params: dict, updates: dict) -> dict:
+    """``optax.apply_updates``: ``p + u`` in the param's dtype."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)

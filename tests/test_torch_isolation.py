@@ -13,6 +13,11 @@ from ray_tpu_torch.serve import llm, llm_pool
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+# the port's RL layer: ray_tpu/rl/'s modules that are ported
+RL_MODULES = ("__init__", "vtrace", "models", "rl_module", "learner", "bc",
+              "envs", "connectors", "multi_agent", "env_runner",
+              "vector_env", "ppo", "impala", "appo", "experience",
+              "actor_learner")
 
 
 def _port_files():
@@ -65,6 +70,7 @@ def test_port_files_exist():
             "ray_tpu_torch/train/backend_executor.py",
             "ray_tpu_torch/train/trainer.py",
             "tests/test_torch_dist_ranks.py"} <= names
+    assert {f"ray_tpu_torch/rl/{m}.py" for m in RL_MODULES} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
 
 
@@ -121,3 +127,44 @@ def test_train_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     train.save_state({"w": torch.ones(2)}, path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.restore_state(path)
+
+
+def test_rl_entry_points_raise_without_a_card(monkeypatch):
+    """The learners and the actor-learner loop run on the card unless the
+    caller asks for the CPU; only the env runners' placement is the CPU,
+    which the algorithms pass explicitly."""
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl import appo, env_runner, models, rl_module
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Env:
+        def reset(self):
+            return [0.0, 1.0]
+
+        def step(self, a):
+            return [0.0, 1.0], 0.0, True, {}
+
+    for make in (lambda: rl.Learner(2, 2),
+                 lambda: rl.BC(rl.BCConfig()),
+                 lambda: rl.PPO(rl.PPOConfig(env_creator=Env, obs_dim=2)),
+                 lambda: rl.IMPALA(rl.IMPALAConfig(env_creator=Env,
+                                                   obs_dim=2)),
+                 lambda: appo.APPO(appo.APPOConfig(env_creator=Env,
+                                                   obs_dim=2)),
+                 lambda: models.init_policy(0, 2, 2),
+                 lambda: models.from_jax_params({}),
+                 lambda: rl_module.DiscretePolicyModule(2, 2).init(0),
+                 lambda: env_runner.EnvRunner(Env, 2, 2),
+                 lambda: rl.VectorEnvRunner(Env, 2, 2),
+                 lambda: rl.ActorLearnerLoop(rl.ActorLearnerConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    algo = rl.PPO(rl.PPOConfig(env_creator=Env, obs_dim=2,
+                               num_env_runners=1), device="cpu")
+    try:
+        assert algo.learner.device.type == "cpu"
+        assert algo.runtime.get(algo.runtime.call(
+            algo.runners[0], "sample", 2))["obs"].shape == (2, 2)
+    finally:
+        algo.stop()
