@@ -5,7 +5,10 @@ training_step + algorithms/algorithm.py:765: sample -> learn -> sync
 weights). ``train()`` returns a result dict. The runners come through
 ``runtime`` (``serve.runtime``'s interface; None: in-process), each on
 the CPU (env_runner.py's docstring says why); the learner runs on
-``device`` (None: ``cuda``, which raises without a card).
+``device`` (None: ``cuda``, which raises without a card). With
+``num_learners > 1`` the learner is a ``LearnerGroup`` of that many
+members through the same runtime, each on ``device``
+(rl/learner_group.py).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 
 from ray_tpu_torch.rl.env_runner import RUNNER_DEVICE, EnvRunner
 from ray_tpu_torch.rl.learner import Learner, compute_gae
+from ray_tpu_torch.rl.learner_group import LearnerGroup
 from ray_tpu_torch.serve.runtime import InProcessRuntime
 
 
@@ -36,8 +40,8 @@ class PPOConfig:
     entropy_coeff: float = 0.01
     sgd_minibatches: int = 4
     sgd_epochs: int = 4
-    # >1: distributed learner-group members with a per-minibatch
-    # gradient allreduce (JAX's rl/learner_group.py); not ported yet
+    # >1: distributed LearnerGroup members with a per-minibatch gradient
+    # allreduce (rl/learner_group.py)
     num_learners: int = 1
     # env_to_module connector pipeline factory shared by all runners
     # (rl/connectors.py); obs_dim refers to the POST-connector width
@@ -50,18 +54,19 @@ class PPOConfig:
 class PPO:
     def __init__(self, config: PPOConfig, *, runtime=None, device=None):
         assert config.env_creator is not None, "set PPOConfig.env_creator"
-        if config.num_learners > 1:
-            raise NotImplementedError(
-                "PPO with num_learners > 1 needs the LearnerGroup "
-                "(ray_tpu/rl/learner_group.py), which the port has not "
-                "ported yet: it is the RL slice after this one (ROADMAP "
-                "Queue 1)")
         self.config = config
         self.runtime = runtime or InProcessRuntime()
-        self.learner = Learner(
-            config.obs_dim, config.n_actions, lr=config.lr,
-            clip=config.clip, entropy_coeff=config.entropy_coeff,
-            device=device)
+        if config.num_learners > 1:
+            self.learner = LearnerGroup(
+                config.obs_dim, config.n_actions,
+                num_learners=config.num_learners, lr=config.lr,
+                clip=config.clip, entropy_coeff=config.entropy_coeff,
+                runtime=self.runtime, device=device)
+        else:
+            self.learner = Learner(
+                config.obs_dim, config.n_actions, lr=config.lr,
+                clip=config.clip, entropy_coeff=config.entropy_coeff,
+                device=device)
         self.runners = [
             self.runtime.spawn(EnvRunner, dict(
                 env_creator=config.env_creator, obs_dim=config.obs_dim,
@@ -116,3 +121,5 @@ class PPO:
                 self.runtime.kill(r)
             except Exception:  # noqa: BLE001
                 pass
+        if isinstance(self.learner, LearnerGroup):
+            self.learner.shutdown()

@@ -33,9 +33,10 @@ decode replicas behind a shared admission queue:
 The pool calls its members through a runtime (``serve.runtime``: spawn,
 call, get, put, kill; by default members are objects in this process)
 and the runtime's other services through ``serve.hooks.Hooks``, so a
-hosting runtime can run it over its own actors. ``run_llm_pool`` (a
-deployment through the runtime's serving layer) is the runtime's and is
-not ported.
+hosting runtime can run it over its own actors. ``run_llm_pool`` deploys
+a pool through the runtime's ``deploy`` (one replica behind its HTTP
+ingress: the in-process runtime's stdlib server, or a hosting runtime's
+Serve proxy).
 """
 
 from __future__ import annotations
@@ -1274,3 +1275,23 @@ class LLMPool:
                 pass
         self._prefill = []
         return True
+
+
+def run_llm_pool(name: str = "llm", *, runtime,
+                 route_prefix: str | None = None,
+                 max_concurrent_queries: int = 128, **pool_kwargs):
+    """Deploy an LLMPool through ``runtime`` (``serve.runtime``'s
+    ``deploy``: HTTP-routable at ``route_prefix``, default ``/{name}``)
+    and return its handle; ``runtime.http_address()`` is the ingress. The
+    pool's own members come through the same runtime unless
+    ``pool_kwargs`` name one. min_replicas/max_replicas/target_ttft_s go
+    to the POOL (init kwargs): the pool scales its own decode replicas.
+    The pool deployment itself stays at ONE replica — NEVER give it
+    deployment-level autoscaling (a second pool replica would split the
+    admission queue, duplicate the decode fleet, and break
+    submit_stream/poll_stream affinity across pool instances)."""
+    pool_kwargs.setdefault("runtime", runtime)
+    return runtime.deploy(
+        LLMPool, name=name, route_prefix=route_prefix or f"/{name}",
+        init_kwargs=pool_kwargs, num_replicas=1,
+        max_concurrent_queries=max_concurrent_queries)

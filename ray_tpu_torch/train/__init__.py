@@ -5,7 +5,8 @@ optimizer, and the train runtime.
 - step.py: ``TrainState``, ``batch_sharding``, ``init_train_state``,
   ``make_train_step``
 - checkpoint.py: dict and sharded train-state checkpoints with crc32
-  integrity, in the JAX package's format; ``CheckpointManager``
+  integrity, in the JAX package's format; ``CheckpointManager``;
+  ``ship_checkpoint`` / ``fetch_checkpoint`` through a runtime's store
 - session.py: the worker side (``report``, ``get_checkpoint``,
   ``get_dataset_shard``, ...)
 - dcn.py: ``dcn_allreduce_grads``, the bucketed gradient sync
@@ -27,8 +28,10 @@ from ray_tpu_torch.train.checkpoint import (  # noqa: F401
     Checkpoint,
     CheckpointCorruptError,
     CheckpointManager,
+    fetch_checkpoint,
     restore_state,
     save_state,
+    ship_checkpoint,
     verify_checkpoint,
 )
 from ray_tpu_torch.train import session  # noqa: F401

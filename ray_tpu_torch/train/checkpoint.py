@@ -1,9 +1,10 @@
 """Checkpoints of a train state, sharded or not, with crc32 integrity.
 
-The port's own copy of ray_tpu/train/checkpoint.py (all of it but
-``ship_checkpoint``/``fetch_checkpoint``, which ride the runtime's object
-store), in the same on-disk format, so a checkpoint written by either
-package reads in the other. One directory per checkpoint:
+The port's own copy of ray_tpu/train/checkpoint.py, in the same on-disk
+format, so a checkpoint written by either package reads in the other.
+``ship_checkpoint``/``fetch_checkpoint`` ride the object store of a
+runtime value (``serve.runtime``'s ``put(owned=True)`` and ``get``; None:
+in-process). One directory per checkpoint:
 
     meta.msgpack         {"leaves": [{"kind": "array", "shape", "dtype",
                          "spec"} or {"kind": "py"}, ...], "n_leaves",
@@ -783,6 +784,81 @@ def restore_state(path: str, mesh=None, shardings=None, *, like=None,
         return structure.unflatten(leaves)
     finally:
         reader.close()
+
+
+def ship_checkpoint(ckpt: "Checkpoint | str", *, runtime=None,
+                    wait_clearance=None) -> Any:
+    """Ship a checkpoint directory through the runtime's object store.
+
+    Returns a ref (``runtime.put``'s) whose value is ``{"dir": basename,
+    "members": {fname: uint8 array}}``. Members are mapped, so the put
+    reads page cache directly; the put owns its bytes (``owned=True``:
+    a store copies them, the in-process runtime copies each member), so
+    the maps are closed right after it and the ref outlives the
+    directory. ``wait_clearance``, when given, is called first: a hosting
+    runtime's overload guardian holds bulk transfers with it (JAX calls
+    ``ray_tpu.serve.overload.wait_bulk_clearance``); None waits for
+    nothing, as in process.
+    """
+    import mmap
+
+    if wait_clearance is not None:
+        wait_clearance()
+    rt = runtime or _in_process_runtime()
+    path = ckpt.path if isinstance(ckpt, Checkpoint) else \
+        os.path.abspath(ckpt)
+    if not os.path.isdir(path):
+        raise CheckpointCorruptError(path, "checkpoint directory missing")
+    members: dict[str, Any] = {}
+    maps = []
+    try:
+        for fn in sorted(os.listdir(path)):
+            full = os.path.join(path, fn)
+            if not os.path.isfile(full):
+                continue
+            if os.path.getsize(full) == 0:
+                members[fn] = np.empty(0, dtype=np.uint8)
+                continue
+            f = open(full, "rb")  # noqa: SIM115 — lifetime spans the put
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            maps.append((f, mm))
+            members[fn] = np.frombuffer(mm, dtype=np.uint8)
+        return rt.put({"dir": os.path.basename(path), "members": members},
+                      owned=True)
+    finally:
+        members.clear()  # release the map views before closing
+        for f, mm in maps:
+            try:
+                mm.close()
+            except BufferError:
+                pass  # a straggler view pins pages until gc; harmless
+            f.close()
+
+
+def fetch_checkpoint(ref: Any, dest_root: str, *, runtime=None,
+                     timeout: float = 600.0) -> Checkpoint:
+    """Materialize a shipped checkpoint under ``dest_root``.
+
+    The get carries ``fetch_tags={"qos": "bulk", "owner": "checkpoint"}``
+    (JAX's ``fetch_context``), so a hosting runtime attributes the
+    transfer to the checkpoint consumer; writing the members out is the
+    only copy after it. Verifies integrity before returning."""
+    rt = runtime or _in_process_runtime()
+    blob = rt.get(ref, timeout=timeout,
+                  fetch_tags={"qos": "bulk", "owner": "checkpoint"})
+    path = os.path.join(os.path.abspath(dest_root), blob["dir"])
+    os.makedirs(path, exist_ok=True)
+    for fn, arr in blob["members"].items():
+        with open(os.path.join(path, fn), "wb") as f:
+            f.write(memoryview(np.ascontiguousarray(arr)))
+    verify_checkpoint(path)
+    return Checkpoint(path)
+
+
+def _in_process_runtime():
+    from ray_tpu_torch.serve.runtime import InProcessRuntime
+
+    return InProcessRuntime()
 
 
 class CheckpointManager:

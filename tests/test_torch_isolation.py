@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 RL_MODULES = ("__init__", "vtrace", "models", "rl_module", "learner", "bc",
               "envs", "connectors", "multi_agent", "env_runner",
               "vector_env", "ppo", "impala", "appo", "experience",
-              "actor_learner")
+              "actor_learner", "replay", "dqn", "sac", "learner_group",
+              "policy_server")
 
 
 def _port_files():
@@ -130,11 +131,13 @@ def test_train_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 
 
 def test_rl_entry_points_raise_without_a_card(monkeypatch):
-    """The learners and the actor-learner loop run on the card unless the
-    caller asks for the CPU; only the env runners' placement is the CPU,
-    which the algorithms pass explicitly."""
+    """The learners, the learner groups, the policy server, the pool
+    behind run_llm_pool and the actor-learner loop run on the card unless
+    the caller asks for the CPU; only the env runners' placement is the
+    CPU, which the algorithms pass explicitly."""
     from ray_tpu_torch import rl
     from ray_tpu_torch.rl import appo, env_runner, models, rl_module
+    from ray_tpu_torch.serve import runtime as serve_runtime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -157,7 +160,18 @@ def test_rl_entry_points_raise_without_a_card(monkeypatch):
                  lambda: rl_module.DiscretePolicyModule(2, 2).init(0),
                  lambda: env_runner.EnvRunner(Env, 2, 2),
                  lambda: rl.VectorEnvRunner(Env, 2, 2),
-                 lambda: rl.ActorLearnerLoop(rl.ActorLearnerConfig())):
+                 lambda: rl.ActorLearnerLoop(rl.ActorLearnerConfig()),
+                 lambda: rl.DQN(rl.DQNConfig(env_creator=Env, obs_dim=2)),
+                 lambda: rl.SAC(rl.SACConfig(env_creator=Env)),
+                 lambda: rl.SACLearner(3, 1),
+                 lambda: rl.LearnerGroup(2, 2),
+                 lambda: rl.SACLearnerGroup(3, 1),
+                 lambda: rl.PolicyServer(
+                     rl_module.DiscretePolicyModule(2, 2),
+                     rl_module.DiscretePolicyModule(2, 2).init(0,
+                                                               device="cpu")),
+                 lambda: llm_pool.run_llm_pool(
+                     runtime=serve_runtime.InProcessRuntime())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     algo = rl.PPO(rl.PPOConfig(env_creator=Env, obs_dim=2,

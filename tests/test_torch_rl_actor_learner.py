@@ -12,8 +12,8 @@ CPU.
   driven by one script on both copies, outputs equal;
 - the in-process ActorLearnerLoop at tiny (sync mode, one rollout actor,
   one learner, 3 iterations): conservation and exact delivery, and the
-  same run with the learner dying in iteration 2, resumed in place;
-- PPO with num_learners > 1 raises until the learner group is ported.
+  same run with the learner dying in iteration 2, resumed in place.
+PPO with num_learners > 1 is tests/test_torch_rl_learner_group.py's.
 """
 
 import functools
@@ -32,12 +32,10 @@ from ray_tpu_torch.models.decode_engine import RaggedDecoder
 from ray_tpu_torch.rl import actor_learner as t_al
 from ray_tpu_torch.rl.experience import ExperienceBuffer as TBuffer
 from ray_tpu_torch.rl.learner import batch_to, value_and_grad
-from ray_tpu_torch.rl.ppo import PPO, PPOConfig
 from ray_tpu_torch.rl.vtrace import vtrace as t_vtrace
 from ray_tpu_torch.serve import llm as t_llm
 from ray_tpu_torch.utils.trees import tree_leaves, tree_paths
 from tests.test_actor_learner import _np_vtrace
-from tests.test_rl import Corridor
 
 LOSS_KW = dict(gamma=0.9, rho_bar=1.0, c_bar=1.0, clip_eps=0.3,
                temperature=1.0)
@@ -295,9 +293,3 @@ def test_loop_refuses_jax_placement_knobs(knob, value):
     with pytest.raises(ValueError, match=knob):
         t_al.ActorLearnerLoop(t_al.ActorLearnerConfig(**{knob: value}),
                               device="cpu")
-
-
-def test_ppo_num_learners_needs_the_learner_group():
-    with pytest.raises(NotImplementedError, match="learner_group"):
-        PPO(PPOConfig(env_creator=Corridor, obs_dim=2, num_learners=2),
-            device="cpu")
