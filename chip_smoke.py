@@ -59,7 +59,13 @@ learners, DQN learning the corridor, SAC on the pendulum, and the policy
 server on the card behind the in-process HTTP ingress; run_llm_pool at
 1B answers requests over HTTP (with the serving phases), and the
 trainer's 9.36 GB checkpoint is shipped through the in-process store and
-fetched back (with the trainer phase). Every
+fetched back (with the trainer phase). Then the runtime benchmark
+families that run model code (ray_tpu_torch._private.runtime_perf, quick):
+weight publish and the KV handoff, pool decode at 1 and 2 replicas and
+with the prefix cache, speculation off and at depth 2 and 4, the RL
+rollout, experience handoff and publish, and the 2-stage numpy MPMD
+pipeline, over the in-process runtimes, each held to the correctness
+contract of the JAX module's committed floors. Every
 bf16 head_dim-128
 flash call on those paths must go
 through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
@@ -79,7 +85,9 @@ prints no kernels line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import io
 import json
 import logging
 import os
@@ -95,6 +103,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import _kernels, multichip, train
+from ray_tpu_torch._private import runtime_perf
 from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import ring_attention, ulysses
@@ -3332,7 +3341,9 @@ def phase_rl_ppo_corridor():
         raise AssertionError(f"rl_ppo_corridor: {hist}")
 
 
-AL_ITERATIONS = 3
+# one publish and adoption between learner steps is what the loop's
+# checks need; the time limit has no room for a third iteration
+AL_ITERATIONS = 2
 AL_MEAN_RATIO_TOL = 0.05
 
 
@@ -3341,10 +3352,11 @@ def phase_actor_learner_1b():
     (vocab 32128, bf16 serving, f32 learner masters), max_len 160, one
     pool replica with 8 slots and prompt bucket 64; 8 rollout actors (the
     loop's threads) stream prompts of 64 sampled to 64 new tokens
-    (temperature 1); 8 trajectories an iteration, 3 iterations, one
-    learner (Trainer backend "dcn" on the in-process gang), sync mode;
-    default_reward over the model's vocabulary. Checks: no error, 3
-    reports and 3 publishes, the pool on version 3; buffer conservation
+    (temperature 1); 8 trajectories an iteration, AL_ITERATIONS
+    iterations, one learner (Trainer backend "dcn" on the in-process
+    gang), sync mode; default_reward over the model's vocabulary. Checks:
+    no error, a report and a publish an iteration, the pool on the last
+    version; buffer conservation
     and exact delivery (every rollout one add, rejection or duplicate;
     added = queued + consumed + dropped; no seq consumed twice); at lag 0
     each iteration's mean importance ratio within AL_MEAN_RATIO_TOL of 1
@@ -3955,6 +3967,88 @@ def ship_and_fetch(src, dest_root):
             "verified": True}
 
 
+# JAX's committed floors on these families (tests/test_runtime_perf.py):
+# printed beside each figure as met or not, never asserted (host-paced)
+RP_FLOORS = {
+    "transfer": lambda r: [
+        ("publish latency_s <= 2.0", r[0]["latency_s"], r[0]["latency_s"] <= 2.0),
+        ("kv handoff latency_s <= 2.0", r[1]["latency_s"],
+         r[1]["latency_s"] <= 2.0)],
+    "serve": lambda r: [
+        ("2 replicas >= 1.6 x 1 replica", r[1]["per_s"] / r[0]["per_s"],
+         r[1]["per_s"] >= 1.6 * r[0]["per_s"])] + [
+        (f"{x['name']}: ttft_p99_s < 10", x["ttft_p99_s"], x["ttft_p99_s"] < 10.0)
+        for x in r],
+    "serve_spec": lambda r: [
+        ("depth 4 sampled >= 1.5 x off", r[5]["per_s"] / r[3]["per_s"],
+         r[5]["per_s"] >= 1.5 * r[3]["per_s"]),
+        ("depth 2 sampled >= 1.2 x off", r[4]["per_s"] / r[3]["per_s"],
+         r[4]["per_s"] >= 1.2 * r[3]["per_s"])],
+    "rl": lambda r: [
+        ("rollout >= 40 tokens/s", r[0]["per_s"], r[0]["per_s"] >= 40),
+        ("experience >= 40 ops/s", r[1]["per_s"], r[1]["per_s"] >= 40),
+        ("experience >= 1.0 MB/s", r[1]["mb_per_s"], r[1]["mb_per_s"] >= 1.0),
+        ("publish latency_s <= 2.0", r[2]["latency_s"], r[2]["latency_s"] <= 2.0)],
+    "pipeline": lambda r: [
+        ("steps/s >= 0.5", r[0]["per_s"], r[0]["per_s"] >= 0.5),
+        ("bubble_measured <= 0.75", r[0]["bubble_measured"],
+         r[0]["bubble_measured"] <= 0.75),
+        ("hops/s >= 8", r[1]["per_s"], r[1]["per_s"] >= 8)],
+}
+
+
+def runtime_perf_contract(family, r) -> list[str]:
+    """What is wrong with a family's records by the correctness contract
+    of JAX's committed floors; empty when nothing is."""
+    bad = []
+    if family == "transfer":
+        if r[0]["weight_bytes"] != 427264 or r[1]["latency_s"] <= 0:
+            bad.append("publish or KV handoff")
+    elif family == "serve":
+        if not (r[2]["prefix_hit_rate"] or 0) >= 0.5:
+            bad.append(f"prefix hit rate {r[2]['prefix_hit_rate']}")
+    elif family == "serve_spec":
+        for x in r:
+            if x["spec_depth"] and not (x["match_baseline"] is True
+                                        and x["acceptance_rate"] is not None):
+                bad.append(f"{x['name']}: {x['match_baseline']}, "
+                           f"{x['acceptance_rate']}")
+    elif family == "rl":
+        if r[1]["traj_bytes"] != 51200 or r[2]["weight_bytes"] != 427264:
+            bad.append("experience or publish bytes")
+    elif family == "pipeline":
+        p = r[0]
+        if not (p["heals"] == 0 and p["gang_restarts"] == 0
+                and abs(p["bubble_analytic"] - 1 / 9) < 1e-3
+                and p["bubble_analytic"] <= p["bubble_measured"] < 1):
+            bad.append(f"pipeline {p}")
+    return bad
+
+
+def phase_runtime_perf(family):
+    """One family of the port's runtime_perf (the JAX module's families
+    that run model code) with quick=True on the card, over the in-process
+    runtimes: the tiny model behind an emulated 0.05 s chunk dispatch, or
+    the 256x256 numpy pipeline. Records on the phase line; the
+    correctness contract of JAX's floors is asserted (the family itself
+    raises on a failed request, a short stream or a changed trajectory),
+    JAX's speed floors printed beside the figures as met or not."""
+    fa.reset_launch_count()
+    with contextlib.redirect_stdout(io.StringIO()):  # records go on our line
+        records = runtime_perf.RUNNERS[family](quick=True, device="cuda")
+    counts = fa.launch_counts()
+    bad = runtime_perf_contract(family, records)
+    floors = [{"floor": f, "value": v, "met": bool(m)}
+              for f, v, m in RP_FLOORS[family](records)]
+    ok = not bad and sum(counts.values()) == 0
+    emit({"phase": f"runtime_perf_{family}", "quick": True, "device": "cuda",
+          "records": records, "jax_floors": floors, "launches": counts,
+          "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"runtime_perf_{family}: {bad}, launches {counts}")
+    return counts
+
+
 def sdpa_bwd_ms(q, k, v, do):
     """The library's backward alone: scaled_dot_product_attention forward
     + backward minus its forward, on the same inputs (timed only)."""
@@ -4124,6 +4218,7 @@ GROUPS = {
     "rl_offpolicy": ("rl_offpolicy_card_vs_cpu", "rl_learner_groups_card",
                      "rl_dqn_corridor", "rl_sac_pendulum",
                      "rl_policy_server_card"),
+    "runtime_perf": tuple(f"runtime_perf_{f}" for f in runtime_perf.RUNNERS),
     "profile": ("profile_train_350m", "profile_train_long_context"),
 }
 
@@ -4237,6 +4332,9 @@ def main() -> None:
         by_path["rl_dqn_corridor"] = phase_rl_dqn_corridor()
         by_path["rl_sac_pendulum"] = phase_rl_sac_pendulum()
         by_path["rl_policy_server_card"] = phase_rl_policy_server_card()
+    if "runtime_perf" in groups:
+        for family in runtime_perf.RUNNERS:
+            by_path[f"runtime_perf_{family}"] = phase_runtime_perf(family)
     if "profile" in groups:
         phase_profile("profile_train_350m",
                       train_config("350m", "dots_flash_qkv_mlp"), 8, 2048)

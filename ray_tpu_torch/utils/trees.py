@@ -7,6 +7,8 @@ so the port walks its parameter dicts the same way.
 
 from __future__ import annotations
 
+import numpy as np
+
 
 def tree_leaves(tree) -> list:
     """Leaves of a nested dict, sorted keys, depth first."""
@@ -47,3 +49,48 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
                           for i, x in enumerate(tree))
     return fn(tree, *rest)
+
+
+def _path_leaves(tree, path=()) -> list:
+    """(path, leaf) pairs in JAX's flatten order over nested dicts (sorted
+    keys), lists and tuples (in order); None holds no leaf, as in JAX.
+    A path is the tuple of keys and indices from the root."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for key in sorted(tree)
+                for pl in _path_leaves(tree[key], path + (key,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, x in enumerate(tree)
+                for pl in _path_leaves(x, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_num_params(tree) -> int:
+    """Total number of elements across all leaves."""
+    return sum(int(np.prod(x.shape)) for _, x in _path_leaves(tree))
+
+
+def tree_size_bytes(tree) -> int:
+    """Total bytes across all leaves (numpy arrays or torch tensors)."""
+    return sum(int(np.prod(x.shape)) * x.dtype.itemsize
+               for _, x in _path_leaves(tree))
+
+
+def path_name(path) -> str:
+    """Slash-joined name of a path of keys and indices ('a/b/0/c')."""
+    return "/".join(str(p) for p in path)
+
+
+def tree_map_with_path_names(fn, tree):
+    """Like ``tree_map``, but ``fn`` receives ('a/b/c', leaf)."""
+    def walk(node, path):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(node[k], path + (k,)) for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(x, path + (i,)) for i, x in enumerate(node))
+        return fn(path_name(path), node)
+
+    return walk(tree, ())

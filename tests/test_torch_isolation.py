@@ -70,6 +70,9 @@ def test_port_files_exist():
             "ray_tpu_torch/train/worker_group.py",
             "ray_tpu_torch/train/backend_executor.py",
             "ray_tpu_torch/train/trainer.py",
+            "ray_tpu_torch/utils/trees.py",
+            "ray_tpu_torch/_private/__init__.py",
+            "ray_tpu_torch/_private/runtime_perf.py",
             "tests/test_torch_dist_ranks.py"} <= names
     assert {f"ray_tpu_torch/rl/{m}.py" for m in RL_MODULES} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
@@ -182,3 +185,30 @@ def test_rl_entry_points_raise_without_a_card(monkeypatch):
             algo.runners[0], "sample", 2))["obs"].shape == (2, 2)
     finally:
         algo.stop()
+
+
+def test_private_modules_stand_alone():
+    """``ray_tpu_torch/_private/`` (the JAX package's ``_private``
+    counterpart) imports neither package, and every module of ray_tpu's
+    ``_private`` that imports jax has its counterpart there."""
+    private = sorted((ROOT / "ray_tpu_torch" / "_private").glob("*.py"))
+    assert [p.name for p in private] == ["__init__.py", "runtime_perf.py"]
+    for path in private:
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path.name
+    jax_private = sorted(
+        p.name for p in (ROOT / "ray_tpu" / "_private").glob("*.py")
+        if {"jax", "jaxlib"} & set(_imported_roots(p)))
+    assert set(jax_private) <= {p.name for p in private}, jax_private
+
+
+def test_runtime_perf_families_raise_without_a_card(monkeypatch):
+    from ray_tpu_torch._private import runtime_perf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in runtime_perf.RUNNERS.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(quick=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime_perf.run_benchmarks(quick=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime_perf.main(["--family", "pipeline", "--quick"])
