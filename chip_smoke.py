@@ -19,7 +19,10 @@ a PrefillWorker's KV handed to it: tokens/s, time to first token and time
 between tokens from the per-token stamps), then the serving pool
 (LLMPool over two such replicas: the same traffic, a replica killed under
 greedy and sampled streams, a weight publish with disaggregated prefill,
-and a burst that autoscales it from one replica to two and back), with
+and a burst that autoscales it from one replica to two and back), the
+same pool with each replica a process of its own (ProcessRuntime: the
+traffic, a publish to both processes, a replica killed by SIGKILL and
+its device memory back), with
 an f32 2-layer copy
 holding each engine path to the one it must reproduce. Then the
 mixture-of-experts model at the 1B widths with 8 experts, top-2
@@ -51,7 +54,9 @@ actor-learner loop at Llama-1B (rollout threads streaming sampled
 requests through a one-replica LLMPool, a learner of Trainer(backend=
 "dcn") scoring them through the flash forward and backward, its
 weights published back each iteration), with its buffer's conservation
-and the learner's logprobs against the engine's at lag 0. Then
+and the learner's logprobs against the engine's at lag 0, then one
+iteration of it with the replica and the buffer in processes of their
+own. Then
 off-policy RL: DQN's and SAC's updates on the card against the CPU, the
 learner groups (two members on the card, gradients allreduced through
 the in-process runtime) against the single learner, PPO with two
@@ -65,7 +70,8 @@ weight publish and the KV handoff, pool decode at 1 and 2 replicas and
 with the prefix cache, speculation off and at depth 2 and 4, the RL
 rollout, experience handoff and publish, and the 2-stage numpy MPMD
 pipeline, over the in-process runtimes, each held to the correctness
-contract of the JAX module's committed floors. Every
+contract of the JAX module's committed floors, and the serve family
+again with each member in a process of its own. Every
 bf16 head_dim-128
 flash call on those paths must go
 through the Hopper kernels (flash_fwd_sm90, flash_bwd_fused_sm90, and
@@ -122,7 +128,7 @@ from ray_tpu_torch.train import checkpoint as ckpt_mod
 from ray_tpu_torch.train import dcn, fault_injection
 from ray_tpu_torch.train.worker_group import InProcessTrainRuntime
 from ray_tpu_torch.serve import llm as serve_llm
-from ray_tpu_torch.serve import llm_pool
+from ray_tpu_torch.serve import llm_pool, process_runtime
 from ray_tpu_torch.serve import runtime as serve_runtime
 from ray_tpu_torch.utils import prng
 from ray_tpu_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
@@ -1579,6 +1585,262 @@ def phase_serving_pool(cfg, params, greedy_tokens, sampled_tokens):
     if rec["pumps_alive"]:
         raise AssertionError(f"{rec['pumps_alive']} pump threads outlived "
                              f"their pools")
+    return counts
+
+
+class TimedProcessRuntime(process_runtime.ProcessRuntime):
+    """The process runtime, keeping each put's bytes (in the store's
+    files) and seconds."""
+
+    def __init__(self):
+        super().__init__()
+        self.puts = []
+
+    def put(self, tree, *, owned=False):
+        t0 = time.perf_counter()
+        ref = super().put(tree, owned=owned)
+        nbytes = sum(os.path.getsize(os.path.join(ref.path, f))
+                     for f in os.listdir(ref.path))
+        self.puts.append((nbytes, time.perf_counter() - t0))
+        return ref
+
+
+def spawn_split(rt) -> list:
+    """Each member's spawn, seconds: boot (a new interpreter up to the
+    member's code, imports included), build (its constructor: the CUDA
+    context, weights mapped from the store and moved to the card, cache)
+    and their sum."""
+    return [{"name": m.name, "boot_s": m.boot_s, "build_s": m.build_s,
+             "spawn_s": m.boot_s + m.build_s} for m in rt._members]
+
+
+def processes_gone(members) -> bool:
+    """Every member's process has exited and been reaped."""
+    for m in members:
+        if m.process.exitcode is None:
+            return False
+        try:
+            os.kill(m.pid, 0)
+        except ProcessLookupError:
+            continue
+        return False
+    return True
+
+
+def free_device_bytes() -> int:
+    """Free bytes on the card, counted over every process on it (this
+    one's cached blocks released first)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def phase_serving_pool_procs(cfg, params, greedy_tokens, sampled_tokens):
+    """phase_serving_pool's pool with its members in processes of their
+    own: LLMPool("1b") of 2 LLMServer replicas of the same shape (8 slots
+    of 288 rows, chunks of 32, prompt bucket 128, seed SEED), each a
+    spawned process with a CUDA context of its own
+    (serve.process_runtime.ProcessRuntime), the weights put once into
+    the runtime's file store and mapped by each replica. (a) phase_serving's
+    16 greedy requests of 128 new tokens from 16 handler threads, half
+    generate(), half streamed; (c) publish_weights of the same weights as
+    a host tree, wait_version(1) in every replica process, then 4 of (a)'s
+    requests; (b) 4 greedy and 4 sampled requests (phase_serving_sampled's
+    lanes), the replica of the first stream to hold 6 tokens killed
+    (SIGKILL). (c) runs before (b), so that the publish reaches two
+    processes. Raises unless (a) every stream agrees with phase_serving's
+    tokens (near-tie rule); (c) wait_version is true, both processes
+    report version 1 and the 4 equal (a)'s tokens bit for bit; (b) no
+    client sees an error, every request agrees with its uninterrupted run,
+    and the card's free memory (torch.cuda.mem_get_info, before the spawn,
+    with both replicas alive, right before and after the kill) shows the
+    killed process's memory back: at least 0.95 of its weights and cache,
+    and 0.9 of a replica's footprint at spawn; the replicas' pids are not
+    this process's, every process has exited after the kill and the
+    pool's shutdown, and no flash kernel is launched. Prints the spawn
+    seconds per member, the put's bytes and seconds, the publish's
+    adoption seconds, tokens/s, client TTFT and TBT and kill-to-first-
+    fresh-token beside serving_1b_pool's figures of this run."""
+    warm, prompts = serving_requests()
+    new_tokens, chunk = 128, 32
+    server_kw = dict(slots=8, max_len=288, chunk_tokens=chunk,
+                     prompt_buckets=(128,), seed=SEED, device="cuda")
+    greedy_reqs = [(p, {}) for p in prompts]
+    inproc = RECORDS.get("serving_1b_pool", {})
+    rt = TimedProcessRuntime()
+    rec = {"phase": "serving_1b_pool_procs", "card": card(),
+           "runtime": "ProcessRuntime", "parent_pid": os.getpid()}
+    pool = None
+    try:
+        fa.reset_launch_count()
+        free_before = free_device_bytes()
+        t0 = time.perf_counter()
+        pool = llm_pool.LLMPool("1b", min_replicas=2, max_replicas=2,
+                                autoscale=False, runtime=rt, **server_kw)
+        build_s = time.perf_counter() - t0
+        members = [r.handle for r in pool._alive()]
+        free_alive = free_device_bytes()
+        threads = [threading.Thread(target=pool.generate,
+                                    args=(warm.tolist(), 32))
+                   for _ in range(2)]  # one first prefill + chunk a replica
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        footprint = (free_before - free_alive) / 2
+        rec["processes"] = {
+            "pids": [m.pid for m in members],
+            "pool_build_s": build_s,
+            "spawn_split": spawn_split(rt),
+            "in_process_spawn_s": inproc.get("d_autoscale", {}).get(
+                "spawn_to_healthy_s"),
+            "put_bytes": [b for b, _ in rt.puts],
+            "put_s": [s for _, s in rt.puts],
+            "free_gb_before_spawn": free_before / 2**30,
+            "free_gb_replicas_alive": free_alive / 2**30,
+            "replica_footprint_gb": footprint / 2**30}
+        if not (len({m.pid for m in members}) == 2
+                and os.getpid() not in {m.pid for m in members}):
+            raise AssertionError(f"replica processes: {rec['processes']}")
+
+        # (a) traffic over 2 replica processes
+        admitted = count_admissions(pool)
+        results, dt = serve_through_pool(pool, greedy_reqs, new_tokens)
+        ttft = client_ttft(results)
+        rec["a_traffic"] = {
+            "replicas": 2, "requests": len(prompts), "handler_threads": 16,
+            "seconds": dt,
+            "pool_tokens_per_sec": len(prompts) * new_tokens / dt,
+            "ttft_s_streamed_client": percentiles(
+                [t for i, t in enumerate(ttft) if i % 4 >= 2]),
+            "ttft_s_all_client": percentiles(ttft),
+            "tbt_ms": tbt_ms(results, chunk),
+            "admissions_per_replica": dict(admitted),
+            "equal_to_phase_serving": sum(
+                r["tokens"] == list(w) for r, w in zip(results, greedy_tokens)),
+            "in_process": {k: inproc.get("a_traffic", {}).get(k) for k in (
+                "pool_tokens_per_sec", "ttft_s_streamed_client",
+                "ttft_s_all_client", "tbt_ms")}}
+        for p, r, want in zip(prompts, results, greedy_tokens):
+            assert_tokens_agree(r["tokens"], want,
+                                stream_scores(params, cfg, p, r["tokens"]))
+        inline = [r["tokens"] for r in results]
+
+        # (c) publish the same weights to both processes
+        host = tree_unflatten(params, [x.cpu() for x in tree_leaves(params)])
+        n_puts = len(rt.puts)
+        t0 = time.perf_counter()
+        version = pool.publish_weights(host)
+        publish_s = time.perf_counter() - t0
+        adopted = pool.wait_version(version, timeout=120)
+        adoption_s = time.perf_counter() - t0
+        del host
+        versions = [rt.get(rt.call(m, "weights_version"), timeout=60)
+                    for m in members]
+        results_c, dt_c = serve_through_pool(pool, greedy_reqs[:4], new_tokens)
+        rec["c_publish"] = {
+            "version": version, "wait_version": adopted,
+            "replica_versions": versions,
+            "put_bytes": [b for b, _ in rt.puts[n_puts:]],
+            "put_s": [s for _, s in rt.puts[n_puts:]],
+            "publish_s": publish_s, "publish_to_adoption_s": adoption_s,
+            "adopt_s": adoption_s - publish_s,
+            "requests": 4, "seconds": dt_c,
+            "versions": [r["weights_version"] for r in results_c],
+            "bit_equal_to_a": [r["tokens"] == t
+                               for r, t in zip(results_c, inline)],
+            "in_process": {k: inproc.get("c_publish", {}).get(k) for k in (
+                "publish_s", "publish_to_adoption_s")}}
+        if not (adopted and version == 1 and versions == [1, 1]
+                and rec["c_publish"]["versions"] == [1] * 4
+                and all(rec["c_publish"]["bit_equal_to_a"])):
+            raise AssertionError(f"publish: {rec['c_publish']}")
+
+        # (b) failover: SIGKILL the replica of the first stream at 6 tokens
+        lanes = [{}] * 4 + [dict(SAMPLED, seed=1000 + i) for i in range(4)]
+        fail_prompts = prompts[:4] * 2
+        wants = list(greedy_tokens[:4]) + list(sampled_tokens[:4])
+        kill = {}
+        kill_lock = threading.Lock()
+        admitted = count_admissions(pool)
+        replica_bytes = (sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params))
+                         + 2 * cfg.n_layers * 8 * 288 * cfg.n_kv_heads
+                         * cfg.head_dim * 2)
+
+        def on_tokens(rid, n):
+            with kill_lock:
+                victim = (pool._streams.get(rid) or {}).get("rep")
+                if n < 6 or kill or victim is None:
+                    return
+                with pool._lock:
+                    kill["streams"] = [orid for orid, orec in
+                                       pool._streams.items()
+                                       if orec.get("rep") is victim]
+                free_pre = free_device_bytes()
+                kill.update(replica=victim.name, handle=victim.handle,
+                            inflight=victim.inflight, t=time.perf_counter())
+                rt.kill(victim.handle)
+                kill["kill_s"] = time.perf_counter() - kill["t"]
+                deadline = time.monotonic() + 10  # the process's teardown
+                while True:
+                    kill["freed"] = free_device_bytes() - free_pre
+                    if (kill["freed"] >= 0.95 * replica_bytes
+                            or time.monotonic() > deadline):
+                        break
+                    time.sleep(0.05)
+
+        results_b, dt_b = serve_through_pool(
+            pool, list(zip(fail_prompts, lanes)), new_tokens, on_tokens)
+        moved = [r for r in results_b
+                 if r.get("rid") in kill["streams"]
+                 or ("rid" not in r and r["submitted_s"] > kill["t"])]
+        fresh = sorted(min(t for t in r["token_times_s"] if t > kill["t"])
+                       - kill["t"] for r in moved)
+        rec["b_failover"] = {
+            "requests": len(results_b), "greedy": 4, "sampled": 4,
+            "seconds": dt_b, "killed": kill["replica"],
+            "killed_pid": kill["handle"].pid,
+            "kill_and_reap_s": kill["kill_s"],
+            "victim_inflight": kill["inflight"],
+            "admissions_per_replica": dict(admitted),
+            "streams_reassigned": len(kill["streams"]),
+            "generates_resubmitted": sum("rid" not in r for r in moved),
+            "kill_to_first_fresh_token_s": fresh,
+            "replicas_left": len(pool._alive()),
+            "victim_exited": processes_gone([kill["handle"]]),
+            "device_bytes_freed_by_kill": kill["freed"],
+            "replica_device_bytes": replica_bytes,
+            "agreement": agreement(params, cfg, fail_prompts,
+                                   [r["tokens"] for r in results_b], wants,
+                                   lanes),
+            "in_process": {"kill_to_first_fresh_token_s": inproc.get(
+                "b_failover", {}).get("kill_to_first_fresh_token_s")}}
+        for p, r, want, lane in zip(fail_prompts, results_b, wants, lanes):
+            assert_tokens_agree(r["tokens"], want, stream_scores(
+                params, cfg, p, r["tokens"], **lane))
+        if not (moved and kill["streams"] and len(pool._alive()) == 1
+                and rec["b_failover"]["victim_exited"]):
+            raise AssertionError(f"failover: {rec['b_failover']}")
+        if not (kill["freed"] >= 0.95 * replica_bytes
+                and kill["freed"] >= 0.9 * footprint):
+            raise AssertionError(
+                f"the kill freed {kill['freed']} bytes of the replica's "
+                f"{replica_bytes} (footprint {footprint})")
+        pool.shutdown()
+        rec["all_exited_after_shutdown"] = processes_gone(members)
+        pool = None
+        counts = fa.launch_counts()
+    finally:
+        if pool is not None:
+            pool.shutdown()
+        rt.shutdown()
+    rec["flash_launches"] = counts
+    emit(rec)
+    if not rec["all_exited_after_shutdown"]:
+        raise AssertionError("replica processes outlived their pool")
+    if any(counts.values()):
+        raise AssertionError(f"the pool path launched flash kernels: {counts}")
     return counts
 
 
@@ -3347,14 +3609,17 @@ AL_ITERATIONS = 2
 AL_MEAN_RATIO_TOL = 0.05
 
 
-def phase_actor_learner_1b():
+def phase_actor_learner_1b(runtime=None, iterations=AL_ITERATIONS,
+                           tag="actor_learner_1b"):
     """The RL slice's path at full width: ActorLearnerLoop at Llama-1B
     (vocab 32128, bf16 serving, f32 learner masters), max_len 160, one
     pool replica with 8 slots and prompt bucket 64; 8 rollout actors (the
     loop's threads) stream prompts of 64 sampled to 64 new tokens
-    (temperature 1); 8 trajectories an iteration, AL_ITERATIONS
+    (temperature 1); 8 trajectories an iteration, `iterations`
     iterations, one learner (Trainer backend "dcn" on the in-process
-    gang), sync mode; default_reward over the model's vocabulary. Checks:
+    gang), sync mode; default_reward over the model's vocabulary. The
+    pool's replica and the buffer are members of `runtime` (None: the
+    in-process runtime). Checks:
     no error, a report and a publish an iteration, the pool on the last
     version; buffer conservation
     and exact delivery (every rollout one add, rejection or duplicate;
@@ -3362,13 +3627,18 @@ def phase_actor_learner_1b():
     each iteration's mean importance ratio within AL_MEAN_RATIO_TOL of 1
     (the learner's flash forward at T=128 against the engine's decode
     path, both bf16); 22 flash_fwd_sm90 and 22 flash_bwd_fused_sm90 a
-    learner step and no other attention kernel."""
+    learner step and no other attention kernel. With a ProcessRuntime
+    (a TimedProcessRuntime: phase actor_learner_1b_procs) also: the
+    replica and the buffer are
+    processes other than this one, which have exited after the loop's
+    shutdown, and the flash launches equal actor_learner_1b's for as
+    many iterations."""
     ck_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                            "actor_learner_1b")
     shutil.rmtree(ck_root, ignore_errors=True)
     cfg = actor_learner.ActorLearnerConfig(
         model_size="1b", max_len=160, prompt_len=64, max_new=64,
-        n_rollout_actors=8, trajectories_per_iter=8, iterations=AL_ITERATIONS,
+        n_rollout_actors=8, trajectories_per_iter=8, iterations=iterations,
         num_learners=1, sync_mode=True, storage_path=ck_root,
         reward_fn=functools.partial(actor_learner.default_reward,
                                     vocab_size=actor_learner.VOCAB_SIZE))
@@ -3378,8 +3648,9 @@ def phase_actor_learner_1b():
     t0 = time.perf_counter()
     loop = actor_learner.ActorLearnerLoop(
         cfg, pool_kwargs=dict(slots=8, min_replicas=1, max_replicas=1),
-        device="cuda")
+        runtime=runtime, device="cuda")
     build_s = time.perf_counter() - t0
+    members = [loop.buffer] + [r.handle for r in loop.pool._alive()]
     try:
         fa.reset_launch_count()
         t1 = time.perf_counter()
@@ -3387,7 +3658,7 @@ def phase_actor_learner_1b():
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
         counts = fa.launch_counts()
-        adopted = loop.pool.wait_version(AL_ITERATIONS, timeout=60.0)
+        adopted = loop.pool.wait_version(iterations, timeout=60.0)
         pool_stats = loop.pool.stats()
     finally:
         loop.shutdown()
@@ -3421,21 +3692,37 @@ def phase_actor_learner_1b():
             "entropy": m["entropy"], "loss": m["loss"]})
     roll_s = sum(by_version[v]["seconds"] for v in range(len(hist)))
     roll_tok = sum(by_version[v]["tokens"] for v in range(len(hist)))
-    ok = (out["error"] is None and len(hist) == AL_ITERATIONS
-          and out["publishes"] == AL_ITERATIONS and adopted
-          and out["final_version"] == AL_ITERATIONS
+    procs, procs_ok = None, True
+    if runtime is not None:
+        per_iter = RECORDS["actor_learner_1b"]
+        in_process = {k: v * iterations // per_iter["iterations"]
+                      for k, v in per_iter["launches"].items()}
+        procs = {"runtime": type(runtime).__name__, "parent_pid": os.getpid(),
+                 "member_pids": {m.name: m.pid for m in members},
+                 "spawn_split": spawn_split(runtime),
+                 "puts": len(runtime.puts),
+                 "put_gb": sum(b for b, _ in runtime.puts) / 2**30,
+                 "put_s": sum(t for _, t in runtime.puts),
+                 "exited_after_shutdown": processes_gone(members),
+                 "launches_in_process_per_iterations": in_process}
+        procs_ok = (os.getpid() not in procs["member_pids"].values()
+                    and procs["exited_after_shutdown"]
+                    and counts == in_process)
+    ok = (procs_ok and out["error"] is None and len(hist) == iterations
+          and out["publishes"] == iterations and adopted
+          and out["final_version"] == iterations
           and ro["trajectories"] == st["added"] + st["rejected_stale"] + st["dups"]
           and st["added"] == st["queued"] + st["consumed"] + st["dropped_stale"]
           and len(set(st["consumed_seqs"])) == st["consumed"]
-          and st["consumed"] == cfg.trajectories_per_iter * AL_ITERATIONS
+          and st["consumed"] == cfg.trajectories_per_iter * iterations
           and all(abs(r - 1.0) <= AL_MEAN_RATIO_TOL for r in ratios)
           and all(np.isfinite(m["loss"]) for m in hist)
           and counts == want)
-    emit({"phase": "actor_learner_1b", "model": "1b", "vocab": 32128,
+    emit({"phase": tag, "model": "1b", "vocab": 32128,
           "n_params": serve_llm.model_config("1b", max_len=160,
                                              vocab_size=32128).num_params(),
           "prompt_len": 64, "max_new": 64, "rollout_actors": 8,
-          "trajectories_per_iter": 8, "iterations": AL_ITERATIONS,
+          "trajectories_per_iter": 8, "iterations": iterations,
           "sync_mode": True, "error": out["error"], "resumes": out["resumes"],
           "per_iteration": iters, "rewards": out["rewards"],
           "mean_ratio_tol": AL_MEAN_RATIO_TOL,
@@ -3446,12 +3733,13 @@ def phase_actor_learner_1b():
           "buffer": {k: v for k, v in st.items() if k != "consumed_seqs"},
           "rollouts": ro, "launches": counts, "expected_launches": want,
           "build_s": build_s, "run_s": run_s, "max_allocated_gb": peak_gb,
+          **({"processes": procs} if procs else {}),
           "card": card(), "ok": ok})
     if not ok:
-        raise AssertionError(f"actor_learner_1b: error {out['error']}, "
+        raise AssertionError(f"{tag}: error {out['error']}, "
                              f"ratios {ratios}, buffer {st}, rollouts {ro}, "
                              f"launches {counts} (expected {want}), "
-                             f"adopted {adopted}")
+                             f"adopted {adopted}, processes {procs}")
     torch.cuda.empty_cache()
     return counts
 
@@ -4020,7 +4308,7 @@ def runtime_perf_contract(family, r) -> list[str]:
         p = r[0]
         if not (p["heals"] == 0 and p["gang_restarts"] == 0
                 and abs(p["bubble_analytic"] - 1 / 9) < 1e-3
-                and p["bubble_analytic"] <= p["bubble_measured"] < 1):
+                and p["bubble_analytic"] <= p["bubble_measured"] <= 0.75):
             bad.append(f"pipeline {p}")
     return bad
 
@@ -4046,6 +4334,49 @@ def phase_runtime_perf(family):
           "card": card(), "ok": ok})
     if not ok:
         raise AssertionError(f"runtime_perf_{family}: {bad}, launches {counts}")
+    return counts
+
+
+def phase_runtime_perf_serve_procs():
+    """runtime_perf's serve family (quick) as phase_runtime_perf runs it,
+    with each pool member in a process of its own (a ProcessRuntime):
+    pool decode at 1 and 2 replicas and with the prefix cache. The
+    serve family's contract is asserted, and every member process has
+    exited after the runtime's shutdown. The 1 -> 2 replica ratio is
+    printed beside runtime_perf_serve's (in-process) and beside JAX's 1.6
+    floor, as met or not."""
+    rt = TimedProcessRuntime()
+    try:
+        fa.reset_launch_count()
+        with contextlib.redirect_stdout(io.StringIO()):
+            records = runtime_perf.run_serve_benchmarks(
+                quick=True, device="cuda", runtime=rt)
+        counts = fa.launch_counts()
+    finally:
+        rt.shutdown()
+    bad = runtime_perf_contract("serve", records)
+    ratio = records[1]["per_s"] / records[0]["per_s"]
+    inproc = RECORDS.get("runtime_perf_serve", {}).get("records")
+    members = rt._members
+    exited = processes_gone(members)
+    ok = (not bad and sum(counts.values()) == 0 and exited
+          and len(members) == 5)
+    emit({"phase": "runtime_perf_serve_procs", "quick": True,
+          "device": "cuda", "runtime": "ProcessRuntime", "records": records,
+          "replicas_2_over_1": ratio,
+          "replicas_2_over_1_in_process": (
+              inproc[1]["per_s"] / inproc[0]["per_s"] if inproc else None),
+          "jax_floor_2_over_1": {"floor": 1.6, "met": ratio >= 1.6},
+          "jax_floors": [{"floor": f, "value": v, "met": bool(m)}
+                         for f, v, m in RP_FLOORS["serve"](records)],
+          "spawn_split": spawn_split(rt),
+          "member_pids": [m.pid for m in members],
+          "exited_after_shutdown": exited, "launches": counts,
+          "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"runtime_perf_serve_procs: {bad}, launches "
+                             f"{counts}, exited {exited}, members "
+                             f"{len(members)}")
     return counts
 
 
@@ -4205,7 +4536,8 @@ GROUPS = {
     "serving": ("init_1b", "scoring_1b", "serving_1b", "prng_card_vs_cpu",
                 "serving_1b_sampled", "serving_1b_spec", "serving_1b_prefix",
                 "serving_1b_disaggregated", "serving_1b_server",
-                "serving_1b_pool", "serving_1b_http", "exactness_f32_2layer"),
+                "serving_1b_pool", "serving_1b_pool_procs", "serving_1b_http",
+                "exactness_f32_2layer"),
     "moe": ("init_1b_moe", "scoring_1b_moe", "serving_1b_moe",
             "moe_layer_card_vs_cpu", "exactness_f32_2layer_moe",
             "serving_moe_tiny_server", "train_1b_moe"),
@@ -4214,11 +4546,13 @@ GROUPS = {
     "mesh": ("mesh_dryrun_card", "train_1b_mesh", "seq_parallel_card"),
     "pipeline": ("pipeline_gpipe_card", "pipeline_mpmd_1b"),
     "trainer": ("train_1b_trainer",),
-    "rl": ("rl_card_vs_cpu", "rl_ppo_corridor", "actor_learner_1b"),
+    "rl": ("rl_card_vs_cpu", "rl_ppo_corridor", "actor_learner_1b",
+           "actor_learner_1b_procs"),
     "rl_offpolicy": ("rl_offpolicy_card_vs_cpu", "rl_learner_groups_card",
                      "rl_dqn_corridor", "rl_sac_pendulum",
                      "rl_policy_server_card"),
-    "runtime_perf": tuple(f"runtime_perf_{f}" for f in runtime_perf.RUNNERS),
+    "runtime_perf": tuple(f"runtime_perf_{f}" for f in runtime_perf.RUNNERS)
+    + ("runtime_perf_serve_procs",),
     "profile": ("profile_train_350m", "profile_train_long_context"),
 }
 
@@ -4275,6 +4609,8 @@ def main() -> None:
             by_path["serving_1b_server"] = phase_serving_server(greedy_tokens)
             by_path["serving_1b_pool"] = phase_serving_pool(
                 cfg, params, greedy_tokens, sampled_tokens)
+            by_path["serving_1b_pool_procs"] = phase_serving_pool_procs(
+                cfg, params, greedy_tokens, sampled_tokens)
             by_path["serving_1b_http"] = phase_serving_1b_http(
                 cfg, params, greedy_tokens)
             del params
@@ -4326,6 +4662,12 @@ def main() -> None:
         phase_rl_card_vs_cpu()
         phase_rl_ppo_corridor()
         by_path["actor_learner_1b"] = phase_actor_learner_1b()
+        procs = TimedProcessRuntime()
+        try:
+            by_path["actor_learner_1b_procs"] = phase_actor_learner_1b(
+                procs, iterations=1, tag="actor_learner_1b_procs")
+        finally:
+            procs.shutdown()
     if "rl_offpolicy" in groups:
         phase_rl_offpolicy_card_vs_cpu()
         phase_rl_learner_groups_card()
@@ -4335,6 +4677,7 @@ def main() -> None:
     if "runtime_perf" in groups:
         for family in runtime_perf.RUNNERS:
             by_path[f"runtime_perf_{family}"] = phase_runtime_perf(family)
+        by_path["runtime_perf_serve_procs"] = phase_runtime_perf_serve_procs()
     if "profile" in groups:
         phase_profile("profile_train_350m",
                       train_config("350m", "dots_flash_qkv_mlp"), 8, 2048)

@@ -13,7 +13,9 @@ record names and record fields:
   sampled, each run held token for token to the spec-off run;
 - ``rl``: sampled streaming rollout, the experience handoff through a
   buffer, and weight publish-to-adoption;
-- ``pipeline``: a 2-stage 1F1B MPMD pipeline of 256x256 numpy stages.
+- ``pipeline``: a 2-stage 1F1B MPMD pipeline of 256x256 numpy stages,
+  run by ``--family pipeline`` (or ``RUNNERS``) only: as in JAX,
+  ``run_benchmarks`` leaves it out.
 
 The JAX module's other families (collective, the transfer family's store
 and cross-node tiers, qos, colocate, obs, the core microbenchmarks)
@@ -488,14 +490,13 @@ RUNNERS = {
 
 def run_benchmarks(*, quick: bool = False, device=None,
                    runtime=None) -> list[dict]:
-    """Every family here, in the JAX module's order: serve, serve_spec,
-    rl, transfer, then the pipeline (on its in-process runtime;
-    ``runtime`` is the serving families')."""
+    """The families the JAX module's ``run_benchmarks`` runs, in its
+    order: serve, serve_spec, rl, transfer. The pipeline family is not
+    among them, in JAX as here: it runs through ``--family pipeline``."""
     results = []
     for fam in ("serve", "serve_spec", "rl", "transfer"):
         results.extend(RUNNERS[fam](quick=quick, device=device,
                                     runtime=runtime))
-    results.extend(run_pipeline_benchmarks(quick=quick, device=device))
     return results
 
 

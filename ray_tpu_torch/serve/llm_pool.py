@@ -47,6 +47,7 @@ import logging
 import os
 import threading
 import time
+from concurrent import futures
 
 import numpy as np
 import torch
@@ -286,8 +287,7 @@ class LLMPool:
         self._guardian = self.hooks.guardian(self) if guardian_on else None
 
         rt = self.runtime
-        for _ in range(self.min_replicas):
-            self._replicas.append(self._spawn_replica())
+        self._replicas.extend(self._spawn_replicas(self.min_replicas))
         rt.get([rt.call(r.handle, "health") for r in self._replicas],
                timeout=600)
 
@@ -315,9 +315,29 @@ class LLMPool:
 
     # ---------- replica lifecycle ----------
 
-    def _spawn_replica(self) -> _Replica:
-        self._n_spawned += 1
-        name = f"decode-{self._n_spawned}"
+    def _spawn_replicas(self, n: int) -> list[_Replica]:
+        """``n`` replicas, constructed at the same time, as the JAX pool's
+        actors are (a runtime whose ``spawn`` returns once the member is
+        built, as the in-process and process runtimes' do, would
+        otherwise build them one after another). If one fails, the others
+        are killed and its error is raised."""
+        with self._lock:
+            names = [f"decode-{self._n_spawned + i + 1}" for i in range(n)]
+            self._n_spawned += n
+        with futures.ThreadPoolExecutor(max_workers=n) as ex:
+            spawns = [ex.submit(self._spawn_replica, name) for name in names]
+        built = [f.result() for f in spawns if f.exception() is None]
+        errors = [f.exception() for f in spawns if f.exception() is not None]
+        if errors:
+            for rep in built:
+                try:
+                    self.runtime.kill(rep.handle)
+                except Exception:  # noqa: BLE001 — the first error wins
+                    pass
+            raise errors[0]
+        return built
+
+    def _spawn_replica(self, name: str) -> _Replica:
         # late spawns adopt the LATEST published tree + version; read the
         # pair under the lock: torn against a concurrent publish, a
         # replica could be built on the OLD tree while REPORTING the new
@@ -1142,7 +1162,7 @@ class LLMPool:
             if (time.monotonic() - self._last_scale_up
                     < self.SCALE_UP_COOLDOWN_S):
                 return
-            fresh = [self._spawn_replica() for _ in range(desired - n)]
+            fresh = self._spawn_replicas(desired - n)
             try:
                 rt.get([rt.call(r.handle, "health") for r in fresh],
                        timeout=600)

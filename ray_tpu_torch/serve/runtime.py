@@ -56,6 +56,9 @@ from ``serve.hooks.Hooks``. A runtime has:
 
 :class:`InProcessRuntime` is the default: members are objects in this
 process and each call runs on a thread of its own, in its turn.
+``serve.process_runtime.ProcessRuntime`` puts each member in a process
+of its own, as the JAX runtime's actors are; it has no ``collective``,
+``deploy`` or ``http_address``.
 """
 
 from __future__ import annotations

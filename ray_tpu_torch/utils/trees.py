@@ -1,8 +1,15 @@
-"""Nested dicts of tensors, flattened in JAX's ``tree_flatten`` order.
+"""Parameter trees, walked in JAX's ``tree_flatten`` order.
 
-JAX flattens a dict by its sorted keys, depth first. The optimizer's
-per-leaf stochastic-rounding seeds depend on a leaf's index in that order,
-so the port walks its parameter dicts the same way.
+One walker (:func:`_rebuild`) serves every helper here. Dicts are walked
+by their sorted keys, lists and tuples in order, and ``None`` is an empty
+subtree, as in ``jax.tree_util``; anything else is a leaf, a tuple
+subclass included (the port's ``NamedSharding`` is a NamedTuple and
+stands for JAX's ``NamedSharding``, which is a leaf). As in JAX,
+``is_leaf(node)`` true makes a node a leaf (a tree of logical-axis
+tuples takes ``lambda x: isinstance(x, tuple)``). The optimizer's
+per-leaf stochastic-rounding seeds depend on a leaf's index in that
+order, so the port walks its parameter trees the same way. A rebuilt dict
+keeps the key order of the tree it was built from.
 """
 
 from __future__ import annotations
@@ -10,71 +17,84 @@ from __future__ import annotations
 import numpy as np
 
 
-def tree_leaves(tree) -> list:
-    """Leaves of a nested dict, sorted keys, depth first."""
-    if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
-    return [tree]
+def _rebuild(node, fn, path=(), is_leaf=None):
+    """``node`` with each leaf replaced by ``fn(path, leaf)``, the leaves
+    visited in JAX's flatten order; a path is the tuple of keys and
+    indices from the root."""
+    if is_leaf is not None and is_leaf(node):
+        return fn(path, node)
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        out = {k: _rebuild(node[k], fn, path + (k,), is_leaf)
+               for k in sorted(node)}
+        return {k: out[k] for k in node}
+    if type(node) in (list, tuple):
+        return type(node)(_rebuild(x, fn, path + (i,), is_leaf)
+                          for i, x in enumerate(node))
+    return fn(path, node)
 
 
-def tree_paths(tree, prefix: str = "") -> list:
-    """'/'-joined key paths of the leaves, in ``tree_leaves`` order."""
-    if isinstance(tree, dict):
-        return [p for key in sorted(tree)
-                for p in tree_paths(tree[key], f"{prefix}{key}/")]
-    return [prefix.rstrip("/")]
+def _path_leaves(tree, is_leaf=None) -> list:
+    """(path, leaf) pairs in JAX's flatten order."""
+    out: list = []
+    _rebuild(tree, lambda path, leaf: out.append((path, leaf)),
+             is_leaf=is_leaf)
+    return out
 
 
-def tree_unflatten(like, leaves) -> dict:
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def tree_leaves(tree, is_leaf=None) -> list:
+    """The leaves, in JAX's flatten order."""
+    return [leaf for _, leaf in _path_leaves(tree, is_leaf)]
+
+
+def tree_paths(tree, prefix: str = "", is_leaf=None) -> list:
+    """'/'-joined key paths of the leaves, in ``tree_leaves`` order, each
+    after ``prefix``."""
+    return [prefix + path_name(path)
+            for path, _ in _path_leaves(tree, is_leaf)]
+
+
+def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (in leaf order)."""
     it = iter(leaves)
+    sentinel = object()
 
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        return next(it)
+    def take(path, _):
+        leaf = next(it, sentinel)
+        if leaf is sentinel:
+            raise ValueError("fewer leaves than the tree has")
+        return leaf
 
-    out = build(like)
-    if next(it, None) is not None:
+    out = _rebuild(like, take)
+    if next(it, sentinel) is not sentinel:
         raise ValueError("more leaves than the tree has")
     return out
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (nested dicts, lists and tuples)
-    and the matching leaves of ``rest``; the result has ``tree``'s shape."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
-                          for i, x in enumerate(tree))
-    return fn(tree, *rest)
-
-
-def _path_leaves(tree, path=()) -> list:
-    """(path, leaf) pairs in JAX's flatten order over nested dicts (sorted
-    keys), lists and tuples (in order); None holds no leaf, as in JAX.
-    A path is the tuple of keys and indices from the root."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [pl for key in sorted(tree)
-                for pl in _path_leaves(tree[key], path + (key,))]
-    if isinstance(tree, (list, tuple)):
-        return [pl for i, x in enumerate(tree)
-                for pl in _path_leaves(x, path + (i,))]
-    return [(path, tree)]
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of ``tree``'s shape); the result has ``tree``'s
+    shape."""
+    return _rebuild(tree, lambda path, leaf: fn(
+        leaf, *(_at(r, path) for r in rest)))
 
 
 def tree_num_params(tree) -> int:
     """Total number of elements across all leaves."""
-    return sum(int(np.prod(x.shape)) for _, x in _path_leaves(tree))
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
 
 
 def tree_size_bytes(tree) -> int:
     """Total bytes across all leaves (numpy arrays or torch tensors)."""
     return sum(int(np.prod(x.shape)) * x.dtype.itemsize
-               for _, x in _path_leaves(tree))
+               for x in tree_leaves(tree))
 
 
 def path_name(path) -> str:
@@ -84,13 +104,4 @@ def path_name(path) -> str:
 
 def tree_map_with_path_names(fn, tree):
     """Like ``tree_map``, but ``fn`` receives ('a/b/c', leaf)."""
-    def walk(node, path):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(node[k], path + (k,)) for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(x, path + (i,)) for i, x in enumerate(node))
-        return fn(path_name(path), node)
-
-    return walk(tree, ())
+    return _rebuild(tree, lambda path, leaf: fn(path_name(path), leaf))

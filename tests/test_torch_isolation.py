@@ -25,7 +25,9 @@ def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
               # spawned ranks import it by name: it must import neither
-              ROOT / "tests" / "test_torch_dist_ranks.py"]
+              ROOT / "tests" / "test_torch_dist_ranks.py",
+              # so do the process runtime's test members
+              ROOT / "tests" / "process_members.py"]
     return files
 
 
@@ -48,6 +50,7 @@ def test_port_files_exist():
             "ray_tpu_torch/serve/hooks.py", "ray_tpu_torch/serve/llm.py",
             "ray_tpu_torch/serve/llm_pool.py",
             "ray_tpu_torch/serve/runtime.py",
+            "ray_tpu_torch/serve/process_runtime.py",
             "ray_tpu_torch/serve/overload.py",
             "ray_tpu_torch/serve/multiplex.py",
             "ray_tpu_torch/autoscaler/demand_scheduler.py",
@@ -73,7 +76,8 @@ def test_port_files_exist():
             "ray_tpu_torch/utils/trees.py",
             "ray_tpu_torch/_private/__init__.py",
             "ray_tpu_torch/_private/runtime_perf.py",
-            "tests/test_torch_dist_ranks.py"} <= names
+            "tests/test_torch_dist_ranks.py",
+            "tests/process_members.py"} <= names
     assert {f"ray_tpu_torch/rl/{m}.py" for m in RL_MODULES} <= names
     assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_bwd.cu").exists()
 

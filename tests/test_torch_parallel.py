@@ -74,10 +74,14 @@ def test_param_specs_match_jax(layout, moe):
     j_axes = jl.param_logical_axes(jl.LlamaConfig.tiny(**kw))
     mesh = j_build_mesh(JMeshConfig(**layout), jax.devices()[:8])
     fake = _Mesh(**layout)
-    j_leaves = jax.tree_util.tree_leaves(
-        j_axes, is_leaf=lambda x: isinstance(x, tuple))
-    assert tree_paths(t_axes) == tree_paths(j_axes)
-    for path, t, j in zip(tree_paths(t_axes), tree_leaves(t_axes), j_leaves):
+    def is_axes(x):
+        return isinstance(x, tuple)
+
+    j_leaves = jax.tree_util.tree_leaves(j_axes, is_leaf=is_axes)
+    assert tree_paths(t_axes, is_leaf=is_axes) == \
+        tree_paths(j_axes, is_leaf=is_axes)
+    for path, t, j in zip(tree_paths(t_axes, is_leaf=is_axes),
+                          tree_leaves(t_axes, is_leaf=is_axes), j_leaves):
         assert sharding.logical_to_mesh_spec(t, sharding.DEFAULT_RULES, fake) \
             == tuple(j_spec(j, J_RULES, mesh)), path
         assert sharding.logical_to_mesh_spec(t) == tuple(j_spec(j)), path

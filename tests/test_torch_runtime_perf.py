@@ -14,7 +14,8 @@ is held to the records the JAX module committed in ``RUNTIME_BENCH.json``:
   (tests/test_runtime_perf.py): the prefix configuration hits at >= 0.5,
   publish and KV handoff complete with weight_bytes > 0, the pipeline
   has no heal and no gang restart, bubble_analytic 1/9, and a measured
-  bubble in (0, 1). JAX's lower bound on the measured bubble (the
+  bubble in (0, 0.75], JAX's upper bound. JAX's lower bound on the
+  measured bubble (the
   analytic 1/9) is a timing property: the analytic bubble assumes equal
   stage times, JAX's lanes add transport time to every wait, and the
   in-process lanes add none. A run of this suite beside five other
@@ -22,7 +23,9 @@ is held to the records the JAX module committed in ``RUNTIME_BENCH.json``:
   ``chip_smoke.py``'s ``runtime_perf_pipeline``, not here.
 
 No speed floor is asserted: the figures are host-paced and these tests
-run beside others. The speculative family is in
+run beside others. ``run_benchmarks`` runs the families JAX's
+``run_benchmarks`` runs that are here, in JAX's order, and so emits
+JAX's records: the pipeline family is not among them. The speculative family is in
 ``test_torch_runtime_perf_spec.py``. Also here: the pipeline family's
 stages, run with ``return_params``, give losses and params bit-equal to
 the sequential numpy baseline (JAX's tests/test_mpmd_pipeline.py
@@ -30,6 +33,7 @@ the sequential numpy baseline (JAX's tests/test_mpmd_pipeline.py
 ``{"results", "ts"}`` as JAX's does.
 """
 
+import ast
 import json
 import pathlib
 
@@ -157,7 +161,7 @@ def test_pipeline_family_like_jax(pipeline):
     assert steps["steps"] == 4 and hops["per_s"] > 0
     assert steps["heals"] == 0 and steps["gang_restarts"] == 0
     assert abs(steps["bubble_analytic"] - 1 / 9) < 1e-3
-    assert 0 < steps["bubble_measured"] < 1
+    assert 0 < steps["bubble_measured"] <= 0.75
     # the runtime given took the workers' spans: 2 stages x 4 steps
     assert rec.spans.count("pipeline.step") == 8
 
@@ -214,3 +218,35 @@ def test_main_takes_jax_families():
     with pytest.raises(SystemExit):
         runtime_perf.main(["--family", "qos", "--device", "cpu"])
     assert set(runtime_perf.RUNNERS) == set(PREFIXES)
+
+
+def jax_run_benchmarks_families() -> list[str]:
+    """The families JAX's ``run_benchmarks`` calls, in its order, by the
+    ``run_<family>_benchmarks`` calls in its source."""
+    src = (ROOT / "ray_tpu" / "_private" / "runtime_perf.py").read_text()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef) and n.name == "run_benchmarks")
+    calls = sorted((n.lineno, n.func.id) for n in ast.walk(fn)
+                   if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                   and n.func.id.startswith("run_"))
+    return [name[len("run_"):-len("_benchmarks")] for _, name in calls]
+
+
+def test_run_benchmarks_emits_jax_records(monkeypatch):
+    """Each family stubbed by JAX's committed records of it: what
+    ``run_benchmarks`` returns is JAX's records of the families JAX's
+    ``run_benchmarks`` runs, in its order, among those the port has."""
+    ran = []
+    for fam in runtime_perf.RUNNERS:
+        def stub(*, quick, device, runtime, fam=fam):
+            ran.append(fam)
+            return jax_records(fam)
+        monkeypatch.setitem(runtime_perf.RUNNERS, fam, stub)
+    jax_order = [f for f in jax_run_benchmarks_families()
+                 if f in runtime_perf.RUNNERS]
+    got = runtime_perf.run_benchmarks(quick=True, device="cpu")
+    assert ran == jax_order == ["serve", "serve_spec", "rl", "transfer"]
+    assert [r["name"] for r in got] == [
+        r["name"] for f in jax_order for r in jax_records(f)]
+    assert not any(r["name"].startswith("pipeline") for r in got)
+    assert "pipeline" in runtime_perf.RUNNERS  # --family pipeline

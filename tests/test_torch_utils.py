@@ -7,6 +7,10 @@
   ``tree_num_params``, ``tree_size_bytes``, the slash names of
   ``path_name`` (the port's paths are tuples of keys and indices) and
   ``tree_map_with_path_names`` equal JAX's.
+- The five tree helpers (``tree_leaves``, ``tree_paths``,
+  ``tree_unflatten``, ``tree_map``, ``_path_leaves``) equal
+  ``jax.tree_util`` on trees with lists, tuples and None, one case a
+  helper; ``tree_unflatten(t, tree_leaves(t))`` gives ``t`` back.
 - The tiny serving model's weight tree (``serve.llm.build_model("tiny")``
   at ``max_len`` 96 and 128) has ``tree_size_bytes`` 427264 in both
   packages: the ``weight_bytes`` that ``RUNTIME_BENCH.json`` records for
@@ -127,3 +131,66 @@ def test_tiny_serving_tree_bytes_match_jax(max_len):
     assert trees.tree_size_bytes(params) == jtrees.tree_size_bytes(jparams) \
         == 427264
     assert trees.tree_num_params(params) == jtrees.tree_num_params(jparams)
+
+
+# trees with lists, tuples and None; the leaves are distinct ints
+TREES = [
+    {"a": [1, 2], "b": None, "c": 3},
+    {"t": (4, {"k": 5, "j": None}), "l": [[6], (), None], "e": {}},
+    [7, (8, None), {"b": 9, "a": [10, (11,)]}],
+]
+
+
+def _jax_path(path):
+    return tuple(getattr(p, "key", getattr(p, "idx", None)) for p in path)
+
+
+def _case_tree_leaves(t):
+    assert trees.tree_leaves(t) == jax.tree_util.tree_leaves(t)
+    for is_leaf in (lambda x: isinstance(x, tuple),
+                    lambda x: isinstance(x, list)):
+        assert trees.tree_leaves(t, is_leaf=is_leaf) == \
+            jax.tree_util.tree_leaves(t, is_leaf=is_leaf)
+
+
+def _case_tree_paths(t):
+    jpaths = [jtrees.path_name(p)
+              for p, _ in jax.tree_util.tree_flatten_with_path(t)[0]]
+    assert trees.tree_paths(t) == jpaths
+    assert trees.tree_paths(t, "mu/") == [f"mu/{p}" for p in jpaths]
+    is_tuple = lambda x: isinstance(x, tuple)  # noqa: E731
+    assert trees.tree_paths(t, is_leaf=is_tuple) == [
+        jtrees.path_name(p) for p, _ in jax.tree_util.tree_flatten_with_path(
+            t, is_leaf=is_tuple)[0]]
+
+
+def _case_tree_unflatten(t):
+    leaves, treedef = jax.tree_util.tree_flatten(t)
+    fresh = [f"x{i}" for i in range(len(leaves))]
+    assert trees.tree_unflatten(t, fresh) == \
+        jax.tree_util.tree_unflatten(treedef, fresh)
+    assert trees.tree_unflatten(t, trees.tree_leaves(t)) == t
+    with pytest.raises(ValueError):
+        trees.tree_unflatten(t, fresh + ["extra"])
+
+
+def _case_tree_map(t):
+    doubled = jax.tree_util.tree_map(lambda x: 2 * x, t)
+    assert trees.tree_map(lambda x: 2 * x, t) == doubled
+    assert trees.tree_map(lambda x, y: x + y, t, doubled) == \
+        jax.tree_util.tree_map(lambda x, y: x + y, t, doubled)
+
+
+def _case_path_leaves(t):
+    want = [(_jax_path(p), x)
+            for p, x in jax.tree_util.tree_flatten_with_path(t)[0]]
+    assert trees._path_leaves(t) == want
+
+
+@pytest.mark.parametrize("case", [_case_tree_leaves, _case_tree_paths,
+                                  _case_tree_unflatten, _case_tree_map,
+                                  _case_path_leaves],
+                         ids=lambda f: f.__name__[len("_case_"):])
+def test_tree_helpers_walk_like_jax(case):
+    for t in TREES:
+        case(t)
