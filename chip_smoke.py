@@ -47,7 +47,9 @@ the train runtime's path: a Trainer of two data-parallel workers (threads
 with a CUDA stream each) running the Llama-1B step, gradients averaged
 through the host every step, rank 0 saving the train state after step 2,
 worker 1 killed in step 3 and resumed in place from that checkpoint,
-held to the same run without the fault. Then the RL layer: the
+held to the same run without the fault, then two 2-step runs of it with
+the gradient sync's codec none and int8 (error feedback) over the port's
+ring, held to each other and to the ring on the CPU. Then the RL layer: the
 learners' updates (PPO, IMPALA, APPO, BC) and the vision module on the
 card held to the CPU, the port's PPO on a corridor env, and the
 actor-learner loop at Llama-1B (rollout threads streaming sampled
@@ -59,7 +61,9 @@ iteration of it with the replica and the buffer in processes of their
 own. Then
 off-policy RL: DQN's and SAC's updates on the card against the CPU, the
 learner groups (two members on the card, gradients allreduced through
-the in-process runtime) against the single learner, PPO with two
+the in-process runtime) against the single learner, the PPO group with
+its members in processes of their own, allreducing member to member
+over sockets, against the in-process group, PPO with two
 learners, DQN learning the corridor, SAC on the pendulum, and the policy
 server on the card behind the in-process HTTP ingress; run_llm_pool at
 1B answers requests over HTTP (with the serving phases), and the
@@ -110,6 +114,8 @@ import torch.distributed as dist
 
 from ray_tpu_torch import _kernels, multichip, train
 from ray_tpu_torch._private import runtime_perf
+from ray_tpu_torch.collective import collective as coll
+from ray_tpu_torch.collective import ring as coll_ring
 from ray_tpu_torch.models import decode_engine, kv_prefix_cache, llama
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import ring_attention, ulysses
@@ -3131,8 +3137,12 @@ def trainer_loop(config):
     measured goes to config["probe"] (shared by the threads): per step
     the block the worker consumed and its params' checksums (taken after
     the report, so in the next step's compute segment), and with
-    config["kill"] the raw and the synced gradients of step 1's bucket
-    with the most leaves, on the host."""
+    config["kill"] or config["codec_run"] the raw and the synced
+    gradients of step 1's bucket with the most leaves, on the host, and
+    that bucket's id. Optional keys (the codecs phase): "codec" for
+    dcn_allreduce_grads, "steps" (TRAINER_STEPS), "save" (True: rank 0
+    saves after step TRAINER_SAVE_STEP), and "codec_run", which also
+    records each of the worker's allreduces' OpStats."""
     from ray_tpu_torch.train import session
 
     cfg, probe, dev = config["cfg"], config["probe"], config["device"]
@@ -3161,7 +3171,26 @@ def trainer_loop(config):
         [torch.empty(p.shape, dtype=torch.bfloat16, device="meta")
          for p in ckpt_mod._flatten(state.params)[0]], TRAINER_BUCKET))
     n_buckets = len(buckets)
-    held = [i for i, _, _ in max(buckets, key=lambda b: len(b[2]))[2]]
+    held_id, _, held_members = max(buckets, key=lambda b: len(b[2]))
+    held = [i for i, _, _ in held_members]
+    probe[("held_bucket",)] = held_id
+    probe_bucket = config["kill"] or config.get("codec_run", False)
+    if config.get("codec_run"):
+        worker = session._get_session().worker
+        plain = worker.allreduce
+
+        def recorded(tensor, group_name, op="sum", **kw):
+            out = plain(tensor, group_name, op, **kw)
+            st = coll_ring.last_op_stats(group_name, worker.coll_rank)
+            probe.setdefault(("op_stats", rank), []).append({
+                "tag": kw.get("ef_tag"), "codec": st.codec,
+                "elements": tensor.numel(), "tensor_bytes": st.tensor_bytes,
+                "bytes_sent": st.bytes_sent, "seconds": st.seconds,
+                "compute_s": st.compute_s,
+                "wait_s": st.rendezvous_s + st.recv_wait_s})
+            return out
+
+        worker.allreduce = recorded
     if config["kill"] and seq == 0 and rank == 1:
         # each step makes n_buckets gradient calls and one cursor call
         fault_injection.configure([{
@@ -3170,8 +3199,9 @@ def trainer_loop(config):
             "count": 1, "action": "exit"}])
     def sync(grads):
         synced = train.dcn_allreduce_grads(grads, group,
+                                           codec=config.get("codec"),
                                            bucket_bytes=TRAINER_BUCKET)
-        if config["kill"] and seq == 0 and state.step == 0:
+        if probe_bucket and seq == 0 and state.step == 0:
             raw = ckpt_mod._flatten(grads)[0]
             out = ckpt_mod._flatten(synced)[0]
             probe[("bucket", rank)] = ([raw[i].float().cpu() for i in held],
@@ -3182,7 +3212,7 @@ def trainer_loop(config):
         lambda p, b: llama.loss_fn(p, b, cfg), opt, compute_grad_norm=False,
         grads_dtype=torch.bfloat16, device=dev, sync_grads=sync)
     blocks = iter(shard)
-    while state.step < TRAINER_STEPS:
+    while state.step < config.get("steps", TRAINER_STEPS):
         before = set(shard.state()["consumed"])
         toks = next(blocks).to(dev, non_blocking=True)
         (block,) = set(shard.state()["consumed"]) - before
@@ -3192,7 +3222,8 @@ def trainer_loop(config):
         onehot[shard.state()["consumed"]] = 1
         consumed = train.dcn_allreduce_grads({"c": onehot}, group, op="sum")["c"]
         ckpt = None
-        if rank == 0 and state.step == TRAINER_SAVE_STEP:
+        if (rank == 0 and state.step == TRAINER_SAVE_STEP
+                and config.get("save", True)):
             probe[("saved", seq)] = state_checksums(state)
             t0 = time.perf_counter()
             ckpt = train.save_state(state, os.path.join(
@@ -3208,6 +3239,14 @@ def trainer_loop(config):
         probe[("params", seq, rank, state.step)] = state_checksums(state.params)
 
 
+def ranks_agree_in(pr) -> bool:
+    """The two workers' params checksums equal after every step a probe
+    recorded."""
+    sums = {k[1:]: v for k, v in pr.items() if k[0] == "params"}
+    return bool(sums) and all(sums.get((seq, 1 - r, st)) == v
+                              for (seq, r, st), v in sums.items())
+
+
 def step_segments(spans) -> list:
     """Each train.step span as its ms by segment (session._close_step's
     breakdown: compute is the step's wall less its waits)."""
@@ -3219,14 +3258,15 @@ def step_segments(spans) -> list:
             for name, t0, t1, a in spans.spans if name == "train.step"]
 
 
-def run_trainer(cfg, kill, ck_dir, device="cuda"):
-    """A Trainer(backend="dcn") of 2 workers on the in-process gang; returns
-    (result, probe, spans, flash launches)."""
+def run_trainer(cfg, kill, ck_dir, device="cuda", **options):
+    """A Trainer(backend="dcn") of 2 workers on the in-process gang
+    (``options``: trainer_loop's optional keys); returns (result, probe,
+    spans, flash launches)."""
     spans, probe = SpanLog(), {}
     trainer = train.Trainer(
         trainer_loop,
         train_loop_config={"cfg": cfg, "probe": probe, "kill": kill,
-                           "ck_dir": ck_dir, "device": device},
+                           "ck_dir": ck_dir, "device": device, **options},
         scaling_config=train.ScalingConfig(num_workers=2, backend="dcn",
                                            max_restarts=1),
         run_config=train.RunConfig(name="train_1b_trainer",
@@ -3315,11 +3355,6 @@ def phase_train_1b_trainer():
     blocks, ref_blocks = per_step(probe, "block"), per_step(ref_probe, "block")
     blocks_match = blocks == ref_blocks and len(blocks) == 2 * TRAINER_STEPS
 
-    def ranks_agree_in(pr):
-        sums = {k[1:]: v for k, v in pr.items() if k[0] == "params"}
-        return bool(sums) and all(sums.get((seq, 1 - r, st)) == v
-                                  for (seq, r, st), v in sums.items())
-
     ranks_agree = ranks_agree_in(probe) and ranks_agree_in(ref_probe)
     kill_t = [t for name, t, _, _ in spans.spans if name == "worker.killed"]
     first_after = min(t1_ for name, _, t1_, a in spans.spans
@@ -3384,6 +3419,137 @@ def phase_train_1b_trainer():
                              f"shipped {shipped}")
     torch.cuda.empty_cache()
     return counts
+
+
+CODEC_STEPS = 2  # steps of each run of the codecs phase
+
+
+def cpu_ring_bucket(raws, codec, tag):
+    """The port's ring on the CPU (two threads over a LocalFabric, fresh
+    residuals): the mean of two workers' raw gradients of one bucket (f32
+    copies of bf16 leaves), staged as dcn_allreduce_grads stages it; the
+    leaves rank 0 gets back."""
+    flats = [torch.cat([x.reshape(-1) for x in raw]).to(torch.bfloat16)
+             for raw in raws]
+    fabric = coll.LocalFabric(2)
+    groups = [coll.Group("cpu-ring", 2, r, fabric) for r in range(2)]
+    out = [None, None]
+
+    def go(r):
+        out[r] = coll_ring.ring_allreduce(groups[r], flats[r], op="mean",
+                                          codec=codec, ef_tag=tag)
+
+    threads = [threading.Thread(target=go, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    coll_ring.purge_group("cpu-ring")
+    leaves, pos = [], 0
+    for x in raws[0]:
+        leaves.append(out[0][pos:pos + x.numel()].view(x.shape))
+        pos += x.numel()
+    return leaves
+
+
+def phase_train_1b_trainer_codecs():
+    """The gradient sync's codecs on the train runtime's path: two runs of
+    Trainer(backend="dcn") with 2 in-process workers, each train_1b's
+    step at full Llama-1B (remat flash_qkv, B2 x T2048, bf16 gradients,
+    fused_adamw) from the same seed and blocks, CODEC_STEPS steps, no
+    fault, no save: codec None and codec "int8" (error feedback by
+    bucket, tags dcn:{id}), both over the ring. Checks: step 1's loss
+    bit-equal across the runs, step 2's int8 loss within rel 1e-3 of the
+    none run's; both workers' params bit-equal after every step of each
+    run; step 1's synced bucket with the most leaves, as worker 0 got it
+    on the card, bit-equal to the port's CPU ring on the two workers' raw
+    gradients of that bucket with the run's codec and fresh residuals;
+    each allreduce's OpStats: a rank sends the bucket's bytes with no
+    codec, and n + 4 * ceil(n / 512) bytes for n bf16 elements under int8
+    (against 2n logical); 22 + 22 flash launches per worker per step.
+    Prints each run's collective segment in seconds a step."""
+    cfg = train_config("1b", "flash_qkv")
+    ck_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "train_1b_trainer_codecs")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    n1b = cfg.n_layers
+    want_counts = expected(flash_fwd_sm90=2 * CODEC_STEPS * n1b,
+                           flash_bwd_fused_sm90=2 * CODEC_STEPS * n1b)
+    runs, total = {}, collections.Counter()
+    for codec in ("none", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, probe, spans, counts = run_trainer(
+            cfg, False, os.path.join(ck_root, codec),
+            codec=None if codec == "none" else codec, steps=CODEC_STEPS,
+            save=False, codec_run=True)
+        seconds = time.perf_counter() - t0
+        if res.error is not None:
+            raise AssertionError(f"train_1b_trainer_codecs ({codec}): "
+                                 f"{res.error}")
+        add_counts(total, counts)
+        (raw0, got0), (raw1, _) = probe[("bucket", 0)], probe[("bucket", 1)]
+        tag = f"dcn:{probe[('held_bucket',)]}"
+        cpu = cpu_ring_bucket([raw0, raw1], codec, tag)
+        bucket_exact = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                           for a, b in zip(cpu, got0))
+        stats_ok, stats_rows = True, []
+        for r in (0, 1):
+            for st in probe[("op_stats", r)]:
+                n = st["elements"]
+                want_sent = (n + 4 * -(-n // 512) if st["codec"] == "int8"
+                             else st["tensor_bytes"])
+                stats_ok &= (st["codec"] == codec
+                             or (st["tag"] == "dcn:0" and n == TRAINER_BLOCKS))
+                stats_ok &= st["bytes_sent"] == want_sent
+                if st["codec"] == "int8":
+                    stats_ok &= st["tensor_bytes"] == 2 * n
+                stats_rows.append(st)
+        rows = step_segments(spans)
+        runs[codec] = {
+            "losses": [m["loss"] for m in res.metrics_history],
+            "steps": [m["step"] for m in res.metrics_history],
+            "ranks_agree": ranks_agree_in(probe),
+            "bucket_equals_cpu_ring": bucket_exact,
+            "bucket_elements": sum(x.numel() for x in raw0),
+            "op_stats_ok": bool(stats_ok),
+            "int8_wire_over_logical": (
+                sum(st["bytes_sent"] for st in stats_rows
+                    if st["codec"] == "int8")
+                / max(1, sum(st["tensor_bytes"] for st in stats_rows
+                             if st["codec"] == "int8"))),
+            "grad_allreduces": sum(1 for st in stats_rows
+                                   if st["elements"] != TRAINER_BLOCKS),
+            "collective_s_per_step": [r["collective_ms"] / 1e3 for r in rows],
+            "compute_s_per_step": [r["compute_ms"] / 1e3 for r in rows],
+            # the ring's loops a rank, and of them its encode / decode /
+            # reduce and its waits on the peer
+            **{f"ring_{k}_by_rank": [sum(st[k] for st in
+                                         probe[("op_stats", r)])
+                                     for r in (0, 1)]
+               for k in ("seconds", "compute_s", "wait_s")},
+            "launches": counts, "launches_ok": counts == want_counts,
+            "run_seconds": seconds}
+        del probe, raw0, raw1, got0, cpu
+    shutil.rmtree(ck_root, ignore_errors=True)
+    none, int8 = runs["none"], runs["int8"]
+    step1_equal = none["losses"][0] == int8["losses"][0]
+    rel2 = abs(int8["losses"][1] - none["losses"][1]) / abs(none["losses"][1])
+    ok = (step1_equal and rel2 <= 1e-3
+          and all(r["steps"] == list(range(1, CODEC_STEPS + 1))
+                  and r["ranks_agree"] and r["bucket_equals_cpu_ring"]
+                  and r["op_stats_ok"] and r["launches_ok"]
+                  and all(np.isfinite(r["losses"])) for r in runs.values()))
+    emit({"phase": "train_1b_trainer_codecs", "workers": 2, "backend": "dcn",
+          "transport": "ring", "steps": CODEC_STEPS,
+          "bucket_bytes": TRAINER_BUCKET, "runs": runs,
+          "step1_loss_bit_equal": step1_equal, "step2_loss_rel_diff": rel2,
+          "loss_rel_tol": 1e-3, "expected_launches": want_counts,
+          "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_1b_trainer_codecs: {runs}")
+    torch.cuda.empty_cache()
+    return dict(total)
 
 
 class Corridor:
@@ -3971,6 +4137,71 @@ def phase_rl_learner_groups_card(dev="cuda"):
         raise AssertionError(f"rl_learner_groups_card: {results}")
 
 
+def phase_rl_learner_groups_procs(dev="cuda"):
+    """LearnerGroup(4, 2, num_learners=2) with its members in processes of
+    their own (ProcessRuntime), each on the card with a CUDA context of
+    its own, their gradients allreduced member to member over the ring
+    (AF_UNIX links, not through this process), on
+    rl_learner_groups_card's 64-row PPO batch (minibatches 1, epochs 3).
+    Checks: both members' weights bit-equal to each other and to the
+    in-process group's (world 2); each member's OpStats: 2 * (N - 1) / N
+    of the vector's bytes sent; after shutdown, every member's exit code
+    set and its pid gone. Prints spawn, update and shutdown seconds."""
+    ppo_batch, _ = group_batches()
+    local = learner_group.LearnerGroup(4, 2, num_learners=2, device=dev)
+    try:
+        local.update(dict(ppo_batch), minibatches=1, epochs=3)
+        sync(dev)
+        rt = local.runtime
+        want = rt.get([rt.call(m, "get_weights") for m in local.learners])
+    finally:
+        local.shutdown()
+    procs = process_runtime.ProcessRuntime()
+    try:
+        t0 = time.perf_counter()
+        group = learner_group.LearnerGroup(4, 2, num_learners=2, device=dev,
+                                           runtime=procs)
+        spawn_s = time.perf_counter() - t0
+        members = list(group.learners)
+        t1 = time.perf_counter()
+        group.update(dict(ppo_batch), minibatches=1, epochs=3)
+        update_s = time.perf_counter() - t1
+        got = procs.get([procs.call(m, "get_weights") for m in members],
+                        timeout=120)
+        stats = procs.get([procs.call(m, "collective_stats") for m in members],
+                          timeout=120)
+        spawns = spawn_split(procs)
+        t2 = time.perf_counter()
+        group.shutdown()
+    finally:
+        procs.shutdown()
+    shutdown_s = time.perf_counter() - t2
+    gone = processes_gone(members)
+    equal_local = all(torch.equal(x, y) for g in got
+                      for x, y in zip(tree_leaves(g), tree_leaves(want[0])))
+    equal_each = all(torch.equal(x, y) for x, y in zip(tree_leaves(got[0]),
+                                                       tree_leaves(got[1])))
+    n = len(members)
+    sent_ok = all(st is not None and st.transport == "ring"
+                  and st.bytes_sent == st.tensor_bytes * 2 * (n - 1) // n
+                  for st in stats)
+    ok = equal_local and equal_each and sent_ok and gone
+    emit({"phase": "rl_learner_groups_procs", "learners": n, "device": dev,
+          "weights_equal_in_process_group": equal_local,
+          "replicas_bit_equal": equal_each,
+          "op_stats": [{"tensor_bytes": st.tensor_bytes,
+                        "bytes_sent": st.bytes_sent,
+                        "bytes_recv": st.bytes_recv, "chunks": st.chunks,
+                        "seconds": st.seconds} for st in stats if st],
+          "sent_two_n_minus_1_over_n": sent_ok, "spawn_s": spawn_s,
+          "spawns": spawns, "update_s": update_s, "shutdown_s": shutdown_s,
+          "processes_gone": gone, "card": card(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"rl_learner_groups_procs: equal to in-process "
+                             f"{equal_local}, replicas {equal_each}, sent "
+                             f"{sent_ok}, gone {gone}")
+
+
 def phase_rl_dqn_corridor(dev="cuda"):
     """The port's DQN at JAX's test configuration
     (tests/test_rl_dqn_bc.py:61-71: the corridor, 2 runners of 64 steps,
@@ -4545,12 +4776,12 @@ GROUPS = {
               "grad_exactness_f32", "sr_card_vs_cpu"),
     "mesh": ("mesh_dryrun_card", "train_1b_mesh", "seq_parallel_card"),
     "pipeline": ("pipeline_gpipe_card", "pipeline_mpmd_1b"),
-    "trainer": ("train_1b_trainer",),
+    "trainer": ("train_1b_trainer", "train_1b_trainer_codecs"),
     "rl": ("rl_card_vs_cpu", "rl_ppo_corridor", "actor_learner_1b",
            "actor_learner_1b_procs"),
     "rl_offpolicy": ("rl_offpolicy_card_vs_cpu", "rl_learner_groups_card",
-                     "rl_dqn_corridor", "rl_sac_pendulum",
-                     "rl_policy_server_card"),
+                     "rl_learner_groups_procs", "rl_dqn_corridor",
+                     "rl_sac_pendulum", "rl_policy_server_card"),
     "runtime_perf": tuple(f"runtime_perf_{f}" for f in runtime_perf.RUNNERS)
     + ("runtime_perf_serve_procs",),
     "profile": ("profile_train_350m", "profile_train_long_context"),
@@ -4658,6 +4889,7 @@ def main() -> None:
         by_path["pipeline_mpmd_1b"] = phase_pipeline_mpmd_1b()
     if "trainer" in groups:
         by_path["train_1b_trainer"] = phase_train_1b_trainer()
+        by_path["train_1b_trainer_codecs"] = phase_train_1b_trainer_codecs()
     if "rl" in groups:
         phase_rl_card_vs_cpu()
         phase_rl_ppo_corridor()
@@ -4671,6 +4903,7 @@ def main() -> None:
     if "rl_offpolicy" in groups:
         phase_rl_offpolicy_card_vs_cpu()
         phase_rl_learner_groups_card()
+        phase_rl_learner_groups_procs()
         by_path["rl_dqn_corridor"] = phase_rl_dqn_corridor()
         by_path["rl_sac_pendulum"] = phase_rl_sac_pendulum()
         by_path["rl_policy_server_card"] = phase_rl_policy_server_card()

@@ -1,9 +1,23 @@
-"""Collectives over the axes of a device mesh (``mesh_ops.py``).
-
-The JAX package's process-group collectives over its own RPC (ring,
-star, compression) never touch JAX and are not part of the port.
+"""Collectives: over the axes of a device mesh (``mesh_ops.py``), and
+between the members of a group on the host (``collective.py`` over the
+ring of ``ring.py`` and the codecs of ``compression.py``), the port's
+counterparts of ray_tpu/collective/.
 """
 
+from ray_tpu_torch.collective.collective import (  # noqa: F401
+    CollectiveAbortError,
+    CollectiveTimeoutError,
+    Group,
+    LocalFabric,
+    SocketFabric,
+    allgather,
+    allreduce,
+    reducescatter,
+)
+from ray_tpu_torch.collective.compression import (  # noqa: F401
+    Codec,
+    get_codec,
+)
 from ray_tpu_torch.collective.mesh_ops import (  # noqa: F401
     mesh_all_to_all,
     mesh_allgather,
@@ -11,4 +25,11 @@ from ray_tpu_torch.collective.mesh_ops import (  # noqa: F401
     mesh_broadcast,
     mesh_ppermute,
     mesh_reducescatter,
+)
+from ray_tpu_torch.collective.ring import (  # noqa: F401
+    OpStats,
+    last_op_stats,
+    ring_allgather,
+    ring_allreduce,
+    ring_reducescatter,
 )

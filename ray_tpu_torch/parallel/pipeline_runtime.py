@@ -58,8 +58,10 @@ from __future__ import annotations
 
 import dataclasses
 import queue
+import threading
 import time
 import traceback
+from typing import Any, Callable
 
 import numpy as np
 
@@ -74,10 +76,42 @@ from ray_tpu_torch.train.worker_group import (  # noqa: F401
     InertRecorder,
     InProcessGang,
     Member,
-    Reduce,
     WorkerKilled,
 )
 from ray_tpu_torch.utils.trees import tree_map
+
+
+class Reduce:
+    """The values of n members combined in member order (``combine`` of
+    the list); every member gets the same result, which it must not
+    write to."""
+
+    def __init__(self, n: int, combine: Callable[[list], Any]):
+        self.n = n
+        self.combine = combine
+        self.cond = threading.Condition()
+        self.slots: list = [None] * n
+        self.arrived = 0
+        self.generation = 0
+        self.last = None
+
+    def __call__(self, index, value, check, deadline):
+        with self.cond:
+            gen = self.generation
+            self.slots[index] = value
+            self.arrived += 1
+            if self.arrived == self.n:
+                self.last = self.combine(self.slots)
+                self.slots, self.arrived = [None] * self.n, 0
+                self.generation += 1
+                self.cond.notify_all()
+            while self.generation == gen:
+                check()
+                if time.monotonic() > deadline:
+                    raise CollectiveTimeoutError(
+                        f"reduce: {self.arrived} of {self.n} members")
+                self.cond.wait(POLL_S)
+            return self.last
 
 
 def _tree_sum(trees: list):

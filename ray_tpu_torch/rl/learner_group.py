@@ -13,8 +13,12 @@ The members and their collective come through ``runtime``
 member, ``collective(members, group_name)`` returns one allreduce
 callable per rank, and ``join_group`` hands each member its own, which
 it calls from inside its update. JAX makes the members ray_tpu actors in
-a collective group (``create_collective_group``); a hosting runtime
-does the same and returns callables over ``ray_tpu.collective``.
+a collective group (``create_collective_group``) and sums over its ring;
+the port's runtimes give the ring of ``ray_tpu_torch/collective/`` (op
+``sum``): ``InProcessRuntime`` over mailboxes of this process,
+``ProcessRuntime`` over sockets between the member processes, and a
+hosting runtime over ``ray_tpu.collective``. ``collective_stats()`` is a
+member's last collective's wire accounting.
 
 Placement: each member's learner runs on ``device``, which the group
 passes through (None: ``cuda``, which raises without a card), as the
@@ -38,7 +42,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.rl import models
 from ray_tpu_torch.rl.learner import Learner, normalize_advantages, run_sgd
 from ray_tpu_torch.rl.sac import SACLearner
-from ray_tpu_torch.serve.runtime import InProcessRuntime
+from ray_tpu_torch.serve.runtime import InProcessRuntime, spawn_at_once
 from ray_tpu_torch.utils.trees import tree_leaves, tree_unflatten
 
 
@@ -84,6 +88,12 @@ class _GroupMemberMixin:
         self._world = world_size
         return True
 
+    def collective_stats(self):
+        """The ``OpStats`` of this member's last collective (None before
+        the first, or for a callable that keeps none)."""
+        stats = getattr(self._allreduce, "stats", None)
+        return None if stats is None else stats()
+
     def _grad_hook(self):
         if self._allreduce is None or self._world <= 1:
             return None
@@ -104,9 +114,9 @@ class _LearnerGroupBase:
                    num_learners: int) -> None:
         self.runtime = runtime or InProcessRuntime()
         self.num_learners = num_learners
-        self.learners = [
-            self.runtime.spawn(cls, dict(kwargs), name=f"{cls.__name__}-{r}")
-            for r in range(num_learners)]
+        self.learners = spawn_at_once(self.runtime, [
+            (cls, dict(kwargs), {"name": f"{cls.__name__}-{r}"})
+            for r in range(num_learners)])
         if num_learners > 1:
             rt = self.runtime
             # unique, so that the groups of two drivers (or of JAX's

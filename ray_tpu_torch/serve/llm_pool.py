@@ -47,7 +47,6 @@ import logging
 import os
 import threading
 import time
-from concurrent import futures
 
 import numpy as np
 import torch
@@ -59,7 +58,7 @@ from ray_tpu_torch.serve import hooks as _hooks
 from ray_tpu_torch.serve.llm import LLMServer, adopt_params, build_model
 from ray_tpu_torch.serve.multiplex import multiplexed
 from ray_tpu_torch.serve.overload import L3_SHED_ADMISSION
-from ray_tpu_torch.serve.runtime import InProcessRuntime
+from ray_tpu_torch.serve.runtime import InProcessRuntime, spawn_at_once
 from ray_tpu_torch.utils.trees import tree_leaves
 
 logger = logging.getLogger(__name__)
@@ -321,34 +320,20 @@ class LLMPool:
         built, as the in-process and process runtimes' do, would
         otherwise build them one after another). If one fails, the others
         are killed and its error is raised."""
-        with self._lock:
-            names = [f"decode-{self._n_spawned + i + 1}" for i in range(n)]
-            self._n_spawned += n
-        with futures.ThreadPoolExecutor(max_workers=n) as ex:
-            spawns = [ex.submit(self._spawn_replica, name) for name in names]
-        built = [f.result() for f in spawns if f.exception() is None]
-        errors = [f.exception() for f in spawns if f.exception() is not None]
-        if errors:
-            for rep in built:
-                try:
-                    self.runtime.kill(rep.handle)
-                except Exception:  # noqa: BLE001 — the first error wins
-                    pass
-            raise errors[0]
-        return built
-
-    def _spawn_replica(self, name: str) -> _Replica:
         # late spawns adopt the LATEST published tree + version; read the
         # pair under the lock: torn against a concurrent publish, a
         # replica could be built on the OLD tree while REPORTING the new
         # version, making wait_version's adoption signal lie
         with self._lock:
+            names = [f"decode-{self._n_spawned + i + 1}" for i in range(n)]
+            self._n_spawned += n
             ref, version = self._params_ref, self._weights_version
-        h = self.runtime.spawn(
-            LLMServer, {**self._replica_kwargs, "params_blob": ref,
-                        "engine_name": name, "weights_version": version},
-            name=name, max_concurrency=self._max_inflight + 8)
-        return _Replica(h, name)
+        handles = spawn_at_once(self.runtime, [
+            (LLMServer, {**self._replica_kwargs, "params_blob": ref,
+                         "engine_name": name, "weights_version": version},
+             {"name": name, "max_concurrency": self._max_inflight + 8})
+            for name in names])
+        return [_Replica(h, name) for h, name in zip(handles, names)]
 
     def _mark_dead(self, rep: _Replica):
         with self._lock:

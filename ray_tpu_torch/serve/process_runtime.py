@@ -58,12 +58,21 @@ default.
   ``get``. A member that dies on its own is found by EOF on its pipe,
   with the same effect, so no ``get`` or ``wait`` hangs on a dead
   member. A member whose parent dies sees EOF and exits.
-- **Out of scope.** ``collective``, ``deploy`` and ``http_address``
-  raise ``NotImplementedError``. The learner groups, the policy server
-  and ``run_llm_pool`` run on :class:`InProcessRuntime`.
+- **Collective.** ``collective(handles, group_name)`` returns one
+  picklable callable a member (``collective.MemberAllreducer``). Passed
+  to its member, it becomes there the member's own ``Group`` over a
+  ``SocketFabric``: the members talk to each other, not through this
+  process, each listening on an ``AF_UNIX`` socket in the store's
+  directory and linked to its ring neighbours and to rank 0. A call is
+  the ring allreduce (``op="sum"``) of a host f32 vector. A member that
+  dies is EOF on its links: the others' calls raise
+  ``CollectiveAbortError`` naming the group, the rank and the op.
+- **Out of scope.** ``deploy`` and ``http_address`` raise
+  ``NotImplementedError``. The policy server and ``run_llm_pool`` run on
+  :class:`InProcessRuntime`.
 - **Clean-up.** ``shutdown()`` kills and reaps every member and removes
-  the store. A finalizer does the same when the runtime is collected or
-  the interpreter exits.
+  the store, socket files included. A finalizer does the same when the
+  runtime is collected or the interpreter exits.
 
 Nothing here imports torch: a member whose class needs none starts
 without it, and a tree with no tensor is stored and mapped without it.
@@ -445,6 +454,7 @@ class ProcessRuntime:
         self._root = tempfile.mkdtemp(prefix="ray_tpu_torch_store_")
         self._members: list[Member] = []
         self._puts = itertools.count()
+        self._groups = itertools.count()
         self._closed = False
         self._finalizer = weakref.finalize(self, _cleanup, self._members,
                                            self._root)
@@ -676,10 +686,16 @@ class ProcessRuntime:
             self.kill(member)
         self._finalizer()
 
-    def collective(self, handles, group_name: str):
-        raise NotImplementedError(
-            "ProcessRuntime has no collective: run learner groups on "
-            f"{InProcessRuntime.__name__}")
+    def collective(self, handles, group_name: str) -> list:
+        """One callable a member, in rank order (the module docstring)."""
+        from ray_tpu_torch.collective import collective as coll
+
+        addresses = coll.socket_addresses(self._root, str(next(self._groups)),
+                                          len(handles))
+        authkey = os.urandom(16)
+        return [coll.MemberAllreducer(group_name, len(handles), r, addresses,
+                                      authkey)
+                for r in range(len(handles))]
 
     def deploy(self, cls, **kwargs):
         raise NotImplementedError(

@@ -43,7 +43,8 @@ from ``serve.hooks.Hooks``. A runtime has:
 - ``is_initialized() -> bool``: the runtime is up;
 - ``collective(handles, group_name) -> [allreduce_0, ...]``: one callable
   per member, in rank order, ``allreduce_r(float32 vector) -> the sum
-  over the members``, which member r calls from inside one of its own
+  over the members`` (the ring of ``collective/``, as JAX's learner
+  groups call it), which member r calls from inside one of its own
   calls (the learner groups pass each member its callable);
 - ``deploy(cls, *, name, route_prefix, init_args=(), init_kwargs=None,
   num_replicas=1, max_concurrent_queries) -> handle``: a deployment of
@@ -57,14 +58,13 @@ from ``serve.hooks.Hooks``. A runtime has:
 :class:`InProcessRuntime` is the default: members are objects in this
 process and each call runs on a thread of its own, in its turn.
 ``serve.process_runtime.ProcessRuntime`` puts each member in a process
-of its own, as the JAX runtime's actors are; it has no ``collective``,
-``deploy`` or ``http_address``.
+of its own, as the JAX runtime's actors are; its collective links the
+members to each other, and it has no ``deploy`` or ``http_address``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import http.server
 import json
 import threading
@@ -73,9 +73,6 @@ from concurrent import futures
 from concurrent.futures import Future
 
 import numpy as np
-
-COLLECTIVE_TIMEOUT_S = 120.0  # an in-process allreduce's deadline
-
 
 class ActorError(RuntimeError):
     """A call on a member that was killed, or that was in flight when it
@@ -132,9 +129,10 @@ class InProcessRuntime:
     ``kill`` acts as an actor's death: calls in flight and every later
     call raise :class:`ActorError` at once, and the member's ``abort()``
     (where it has one) stops its threads without draining and releases
-    its device state, so that a respawn fits. A collective sums the
-    members' vectors in rank order (``train.worker_group.Reduce``) and
-    raises ``CollectiveTimeoutError`` past its deadline. The first
+    its device state, so that a respawn fits. A collective is the ring of
+    ``collective/`` over a ``LocalFabric`` (a mailbox a member): it
+    raises ``CollectiveAbortError`` once a member of the group is killed
+    and ``CollectiveTimeoutError`` past its deadline. The first
     ``deploy`` starts one stdlib ``ThreadingHTTPServer`` on 127.0.0.1 at a
     free port; it routes a POSTed JSON body by the longest matching
     ``route_prefix`` to the deployment's ``__call__`` and answers 200 with
@@ -257,17 +255,19 @@ class InProcessRuntime:
         return True
 
     def collective(self, handles, group_name: str) -> list:
-        from ray_tpu_torch.train.worker_group import Reduce
+        from ray_tpu_torch.collective import collective as coll
 
-        def in_rank_order(vectors):
-            out = np.array(vectors[0], np.float32)
-            for v in vectors[1:]:
-                out += v
-            return out
+        def check(rank: int):
+            if handles[rank].dead:
+                raise ActorError(f"{handles[rank].name} is dead")
+            for r, h in enumerate(handles):
+                if h.dead:
+                    return {"reason": f"{h.name} (rank {r}) died", "origin": r}
+            return None
 
-        reduce = Reduce(len(handles), in_rank_order)
-        return [functools.partial(_allreduce, reduce, rank, handle)
-                for rank, handle in enumerate(handles)]
+        fabric = coll.LocalFabric(len(handles), check)
+        return [coll.Allreducer(coll.Group(group_name, len(handles), r, fabric))
+                for r in range(len(handles))]
 
     def deploy(self, cls, *, name: str, route_prefix: str, init_args=(),
                init_kwargs=None, num_replicas: int = 1,
@@ -309,17 +309,26 @@ class InProcessRuntime:
             server.server_close()
 
 
-def _allreduce(reduce, rank: int, handle: _Member, vector,
-               timeout: float = COLLECTIVE_TIMEOUT_S):
-    """Member ``rank``'s side of an in-process collective: its f32 vector
-    in, the rank-order sum of every member's out (a fresh array)."""
-    def check():
-        if handle.dead:
-            raise ActorError(f"{handle.name} is dead")
-
-    out = reduce(rank, np.asarray(vector, np.float32), check,
-                 time.monotonic() + timeout)
-    return out.copy()
+def spawn_at_once(runtime, specs: list) -> list:
+    """Members built at the same time, as the JAX runtime's actors start:
+    ``specs`` are ``(cls, kwargs, spawn options)``, the handles come back
+    in their order. A runtime's ``spawn`` returns once its member is
+    built (a process member's is a new interpreter's boot), so one after
+    another the builds would add up. If one fails, the members built are
+    killed and its error is raised."""
+    with futures.ThreadPoolExecutor(max_workers=max(1, len(specs))) as ex:
+        spawns = [ex.submit(runtime.spawn, cls, kwargs, **opts)
+                  for cls, kwargs, opts in specs]
+    built = [f.result() for f in spawns if f.exception() is None]
+    errors = [f.exception() for f in spawns if f.exception() is not None]
+    if errors:
+        for handle in built:
+            try:
+                runtime.kill(handle)
+            except Exception:  # noqa: BLE001 — the first error wins
+                pass
+        raise errors[0]
+    return built
 
 
 def _owned_copy(tree):

@@ -7,12 +7,13 @@ fixed-byte, dtype-homogeneous buckets (``_fill_buckets``, a copy of
 JAX's, so the buckets hold the same leaves) and reduces each bucket
 across the gang. The reduction is the calling worker's ``allreduce``
 (``train/worker_group.py``), reached through the train session: the
-in-process gang sums host tensors in rank order and takes ``codec=None``
-only (it raises ``ValueError`` on a codec); a runtime hosting the port
-on ray_tpu's actors passes the codec to its ring. Each bucket is staged
+in-process gang runs the port's ring (``ray_tpu_torch/collective/``,
+JAX's default transport) with ``codec`` none, bf16 or int8 and error
+feedback by bucket; a runtime hosting the port on ray_tpu's actors
+passes the codec to its ring. Each bucket is staged
 through one host buffer that the worker keeps from call to call (pinned
 when the gradients live on the card), instead of a host copy of every
-leaf, and the whole sync is added to the step's ``collective`` segment.
+leaf, and reduced in it (the allreduce's ``out``); the whole sync is added to the step's ``collective`` segment.
 
 ``init_cross_slice_group`` and ``reform_cross_slice_group`` are runtime
 calls in the port: the gang rendezvouses its group when the backend
@@ -28,14 +29,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch.collective.compression import BUCKET_BYTES
 from ray_tpu_torch.train import session as _sess
 from ray_tpu_torch.train.checkpoint import _flatten
 
 __all__ = ["dcn_allreduce_grads", "init_cross_slice_group",
            "reform_cross_slice_group"]
-
-# the runtime's default bucket size (collective_bucket_bytes)
-BUCKET_BYTES = 4 * 1024 * 1024
 
 
 def init_cross_slice_group(group_name: str | None = None, **_) -> str:
@@ -127,14 +126,14 @@ def dcn_allreduce_grads(grads: Any, group_name: str = "dcn", *,
             pos += n
         if pin:
             torch.cuda.current_stream(device).synchronize()
+        # reduced into the staging buffer (a mean of integers, float as
+        # JAX's, comes back in a tensor of its own)
         synced = allreduce(buf, group_name, op, codec=codec,
                            transport=transport, timeout=timeout,
-                           ef_tag=f"dcn:{bucket_id}")
-        if synced is not buf:
-            buf.copy_(synced)
+                           ef_tag=f"dcn:{bucket_id}", out=buf)
         pos = 0
         for i, shape, n in members:
-            piece = buf[pos:pos + n].view(shape)
+            piece = synced[pos:pos + n].view(shape)
             out[i] = (piece.numpy().copy() if as_numpy[i]
                       else piece.to(device, non_blocking=pin, copy=True))
             pos += n

@@ -30,10 +30,11 @@ and per-member CUDA stream of in-process workers (threads), which both
 the train gang here and ``parallel/pipeline_runtime.py`` build on.
 :class:`InProcessWorkerGroup` is the train gang: each worker a thread of
 this process with a CUDA stream of its own when there is a card, the
-collective a sum of the members' host tensors in rank order (codec None
-only: a codec is a wire format, and there is no wire), a kill ending
-the worker at its next runtime call and aborting the collective under
-the survivors (a peer's death, as the ring sees it).
+collective ``collective/``'s engine (the ring by default, its codecs
+and error feedback) over a ``LocalFabric`` of the epoch: a mailbox a
+member, each wait looking at the member's kill and the epoch's abort.
+A kill ends the worker at its next runtime call and aborts the epoch
+under the survivors (a peer's death, as the ring sees it).
 ``InProcessTrainRuntime`` makes these gangs. It has no processes, so the
 ``"torch"`` backend (one ``torch.distributed`` group over the workers)
 runs on it at world size 1 only.
@@ -51,20 +52,16 @@ from typing import Any, Callable
 
 import torch
 
+from ray_tpu_torch.collective import collective, ring
+from ray_tpu_torch.collective.collective import (  # noqa: F401 (re-exported)
+    CollectiveAbortError,
+    CollectiveTimeoutError,
+)
 from ray_tpu_torch.train import fault_injection
 
 logger = logging.getLogger(__name__)
 
 POLL_S = 0.05  # how often a blocked call looks at its kill and abort flags
-
-
-class CollectiveTimeoutError(RuntimeError):
-    """A collective call outlived its timeout."""
-
-
-class CollectiveAbortError(RuntimeError):
-    """The collective group was aborted (a member died, or the trainer is
-    quiescing)."""
 
 
 class WorkerDiedError(RuntimeError):
@@ -107,39 +104,6 @@ class Epoch:
         self.lock = threading.Lock()
 
 
-class Reduce:
-    """The values of n members combined in member order (``combine`` of
-    the list); every member gets the same result, which it must not
-    write to."""
-
-    def __init__(self, n: int, combine: Callable[[list], Any]):
-        self.n = n
-        self.combine = combine
-        self.cond = threading.Condition()
-        self.slots: list = [None] * n
-        self.arrived = 0
-        self.generation = 0
-        self.last = None
-
-    def __call__(self, index, value, check, deadline):
-        with self.cond:
-            gen = self.generation
-            self.slots[index] = value
-            self.arrived += 1
-            if self.arrived == self.n:
-                self.last = self.combine(self.slots)
-                self.slots, self.arrived = [None] * self.n, 0
-                self.generation += 1
-                self.cond.notify_all()
-            while self.generation == gen:
-                check()
-                if time.monotonic() > deadline:
-                    raise CollectiveTimeoutError(
-                        f"reduce: {self.arrived} of {self.n} members")
-                self.cond.wait(POLL_S)
-            return self.last
-
-
 class InProcessGang:
     """Kill, abort, quiesce, respawn and reform of in-process members.
     A subclass lists its members as ``_members``, builds each epoch's
@@ -169,8 +133,9 @@ class InProcessGang:
         if member.killed or (mine is not None and mine != member.incarnation):
             raise WorkerKilled()
         if epoch is not None and epoch.aborted.is_set():
-            raise CollectiveAbortError(f"{self._name}: collective epoch "
-                                       f"{epoch.epoch} aborted")
+            rank = getattr(member, "coll_rank", getattr(member, "rank", -1))
+            raise CollectiveAbortError(self._name, rank, epoch.epoch, None,
+                                       "the collective epoch was aborted")
 
     def spawn_thread(self, member: Member, target: Callable, args=(),
                      name: str = "") -> threading.Thread:
@@ -257,40 +222,26 @@ class InProcessGang:
         self.recorder.record(cat, name, t0, t1, attrs)
 
 
-def _combine(op: str):
-    """The in-process allreduce's reduction over the members' host tensors
-    in rank order, ``sum`` or ``mean`` (what the gradient sync asks):
-    half precision accumulates in f32 and rounds once; the mean of
-    integers is floating (as the ring's)."""
-    if op not in ("sum", "mean"):
-        raise ValueError(f"the in-process gang reduces by sum or mean, not {op!r}")
-
-    def combine(slots: list) -> torch.Tensor:
-        base = slots[0]
-        half = base.dtype in (torch.bfloat16, torch.float16)
-        acc = base.to(torch.float32 if half else base.dtype, copy=True)
-        for s in slots[1:]:
-            acc += s
-        if op == "mean":
-            acc = acc.div_(len(slots)) if acc.is_floating_point() \
-                else acc / len(slots)
-        return acc.to(base.dtype) if base.is_floating_point() else acc
-    return combine
-
-
 class _TrainEpoch(Epoch):
-    def __init__(self, epoch: int, name: str, n: int):
+    """One epoch of the train gang's collective: a ``LocalFabric`` over
+    its members (in rank order) and each member's ``Group`` on it."""
+
+    def __init__(self, epoch: int, name: str, gang, workers: list):
         super().__init__(epoch)
         self.name = name
-        self.n = n
-        self.reduces: dict[str, Reduce] = {}
+        self.fabric = collective.LocalFabric(len(workers), self._check)
+        self.groups = [collective.Group(name, len(workers), r, self.fabric,
+                                        epoch=epoch)
+                       for r in range(len(workers))]
+        self._gang, self._workers = gang, workers
 
-    def reduce(self, op: str) -> Reduce:
-        with self.lock:
-            r = self.reduces.get(op)
-            if r is None:
-                r = self.reduces[op] = Reduce(self.n, _combine(op))
-            return r
+    def _check(self, rank: int) -> dict | None:
+        # the waiting member's own kill ends its thread; the epoch's
+        # abort ends the op under every member
+        self._gang.check(self._workers[rank])
+        if self.aborted.is_set():
+            return {"reason": f"collective epoch {self.epoch} aborted"}
+        return None
 
 
 @dataclasses.dataclass(eq=False)
@@ -332,23 +283,25 @@ class TrainWorker(Member):
         if ep is not None:
             ep.aborted.set()
 
-    def allreduce(self, tensor: torch.Tensor, group_name: str, op: str = "sum",
-                  *, codec=None, transport=None, timeout: float | None = None,
-                  ef_tag: str | None = None) -> torch.Tensor:
+    def allreduce(self, tensor, group_name: str, op: str = "sum", *,
+                  codec=None, transport=None, timeout: float | None = None,
+                  ef_tag: str | None = None, out=None):
         """``op`` over the gang's members of a host tensor (every member
-        passes one of the same shape and dtype); a shared result."""
-        if codec not in (None, "none"):
-            raise ValueError(f"the in-process gang has no wire: codec "
-                             f"{codec!r} is not supported (codec=None only)")
+        passes one of the same shape and dtype) through
+        ``collective.allreduce``: ``transport`` ring (default) or star,
+        ``codec`` none, bf16 or int8, error feedback under ``ef_tag``.
+        The result is new, of the input's kind, unless ``out`` is given
+        (``collective.allreduce``): ``tensor`` is never written to
+        otherwise."""
         ep = self.gang._epoch
         if ep is None or ep.name != group_name:
             raise ValueError(f"no collective group {group_name!r}")
         self.gang.check(self, ep)
         fault_injection.fire("collective.allreduce", group=group_name,
                              rank=self.coll_rank, bucket=ef_tag)
-        deadline = time.monotonic() + (120.0 if timeout is None else timeout)
-        return ep.reduce(op)(self.coll_rank, tensor,
-                             lambda: self.gang.check(self, ep), deadline)
+        return collective.allreduce(ep.groups[self.coll_rank], tensor, op,
+                                    codec=codec, transport=transport,
+                                    timeout=timeout, ef_tag=ef_tag, out=out)
 
 
 class InProcessWorkerGroup(InProcessGang):
@@ -384,7 +337,7 @@ class InProcessWorkerGroup(InProcessGang):
         return self.workers
 
     def _new_epoch(self, epoch: int) -> _TrainEpoch:
-        return _TrainEpoch(epoch, self._coll_group, len(self.workers))
+        return _TrainEpoch(epoch, self._coll_group, self, list(self.workers))
 
     def _clear(self, member: TrainWorker) -> None:
         member.state = {}
@@ -521,11 +474,14 @@ class InProcessWorkerGroup(InProcessGang):
         self._coll_group = name
         self._rank_members()
         self.reform()
+        ring.purge_group(name)  # a new incarnation folds no old residual
         return name
 
     def destroy_collective(self) -> None:
         if self._epoch is not None:
             self._epoch.aborted.set()
+        if self._coll_group is not None:
+            ring.purge_group(self._coll_group)
         self._epoch = None
         self._coll_group = None
 

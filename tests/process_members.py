@@ -1,4 +1,5 @@
-"""Small members for tests/test_torch_process_runtime.py.
+"""Small members for tests/test_torch_process_runtime.py and
+tests/test_torch_collective_procs.py.
 
 The process runtime's members import their class by its module path, so
 these live in a module of their own that imports neither JAX nor torch:
@@ -108,3 +109,22 @@ class RefusingInit:
 class DyingInit:
     def __init__(self):
         os._exit(7)
+
+
+class RingMember:
+    """Holds its callable of ``ProcessRuntime.collective`` and calls it
+    (the callable imports the port's collective package, and torch with
+    it, when it arrives)."""
+
+    def join(self, allreduce) -> int:
+        self.allreduce = allreduce
+        return os.getpid()
+
+    def reduce(self, vector, timeout: float = 60.0):
+        return self.allreduce(vector, timeout=timeout)
+
+    def stats(self):
+        st = self.allreduce.stats()
+        return None if st is None else {
+            "tensor_bytes": st.tensor_bytes, "bytes_sent": st.bytes_sent,
+            "bytes_recv": st.bytes_recv, "chunks": st.chunks}

@@ -6,18 +6,32 @@ reduction runs on the in-process gang (``train/worker_group.py``), each
 worker a thread with a train session; the mean of world 1, 2 and 3 equals
 the numpy mean over the workers' trees (tests/test_dcn_sync.py's
 reference, through ``jax.tree_util``) within 1e-6 relative in f32, and
-every worker gets the same bits. The in-process gang has no wire, so a
-codec is refused.
+every worker gets the same bits. The gang's reduction is the port's ring
+(``ray_tpu_torch/collective/``): at world 3 its mean of f32 and bf16
+trees equals JAX's ``dcn_allreduce_grads`` over JAX's ring on the same
+buckets bit for bit (JAX's ranks as threads of tests/test_collective_ring.py's
+fake group), and so do the bf16 and int8 codecs with error feedback over
+2 calls at world 2 and 3. A worker killed in the middle of a ring ends
+the survivors' sync with ``CollectiveAbortError``.
 """
 
+import threading
+import time
+
 import jax
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu.collective import ring as jring
 from ray_tpu.train import dcn as jdcn
+from ray_tpu_torch.collective.collective import CollectiveAbortError
 from ray_tpu_torch.train import dcn, session
-from ray_tpu_torch.train.worker_group import InProcessWorkerGroup
+from ray_tpu_torch.train.worker_group import (InProcessWorkerGroup,
+                                              WorkerDiedError)
+
+from test_collective_ring import _FakeGroup, _Net
 
 
 def _slice_grads(rank: int) -> dict:
@@ -134,11 +148,198 @@ def test_sum_op_and_staging_reuse():
         assert same
 
 
-@pytest.mark.parametrize("codec", ["int8", "bf16"])
-def test_in_process_gang_refuses_a_codec(codec):
-    def sync(w, group):
-        with pytest.raises(ValueError, match="codec"):
-            _sync(w, group, codec, 1024, False)
-        return True
+@pytest.mark.parametrize("transport", ["ring", "star"])
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "sum"),
+                                      (torch.bfloat16, "mean"),
+                                      (torch.int32, "mean")],
+                         ids=["f32-sum", "bf16-mean", "i32-mean"])
+def test_gang_allreduce_writes_its_input_only_as_out(transport, dtype, op):
+    """A worker's allreduce leaves its input as it was and returns a new
+    result, unless it is handed ``out``: then ``out`` holds the result
+    and is returned (the mean of integers, float64 as numpy's, comes back
+    in a tensor of its own, and ``out`` is not written)."""
+    def reduce(w, group):
+        x = (torch.arange(6, dtype=torch.float32) * (w.coll_rank + 1)).to(dtype)
+        kept = x.clone()
+        new = w.allreduce(x, group, op, transport=transport)
+        untouched = torch.equal(x, kept)
+        into = torch.zeros_like(x)
+        got = w.allreduce(x, group, op, transport=transport, out=into)
+        return untouched, new, got, into
 
-    assert _on_gang(1, sync) == [True]
+    for untouched, new, got, into in _on_gang(3, reduce):
+        assert untouched
+        assert torch.equal(got, new)
+        if new.dtype == dtype:
+            assert got is into
+        else:
+            assert new.dtype == torch.float64 and not into.any()
+
+
+def _tree(rank: int, step: int, bf16: bool):
+    """A worker's gradient tree: _slice_grads at step 0, other seeds
+    after; bf16 as JAX's ml_dtypes arrays (the port takes the same bits
+    as torch.bfloat16)."""
+    tree = _slice_grads(rank + 10 * step)
+    if bf16:
+        tree = jax.tree_util.tree_map(
+            lambda x: x.astype(ml_dtypes.bfloat16), tree)
+    return tree
+
+
+def _as_port(tree):
+    def one(x):
+        if x.dtype == np.dtype(ml_dtypes.bfloat16):
+            return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+        return torch.from_numpy(x.copy())
+    return jax.tree_util.tree_map(one, tree)
+
+
+def _jax_ring_sync(world, trees_by_step, codec, bucket_bytes):
+    """JAX's dcn_allreduce_grads on each of ``world`` threaded ranks of
+    the fake group, its allreduce routed to JAX's ring there; a list of
+    each step's synced tree, by rank."""
+    net, local = _Net(), threading.local()
+
+    def ring_allreduce(tensor, group_name, op, *, codec, transport, timeout,
+                       ef_tag):
+        return jring.ring_allreduce(local.g, np.asarray(tensor), op=op,
+                                    codec=codec, timeout=timeout,
+                                    ef_tag=ef_tag)
+
+    outs = [None] * world
+
+    def go(r):
+        local.g = _FakeGroup(net, "dcn", world, r)
+        outs[r] = [jdcn.dcn_allreduce_grads(trees[r], "dcn", codec=codec,
+                                            bucket_bytes=bucket_bytes)
+                   for trees in trees_by_step]
+
+    orig = jdcn._col.allreduce
+    jdcn._col.allreduce = ring_allreduce
+    try:
+        threads = [threading.Thread(target=go, args=(r,)) for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        jdcn._col.allreduce = orig
+        jring.purge_group("dcn")
+    return outs
+
+
+def _leaf_bits(x):
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        return x.numpy().tobytes()
+    x = np.asarray(x)
+    return (x.view(np.int16) if x.dtype.itemsize == 2 else x).tobytes()
+
+
+def _assert_bits_equal(got_trees, want_trees):
+    for got, want in zip(got_trees, want_trees):
+        g, w = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            assert tuple(a.shape) == tuple(b.shape)
+            assert _leaf_bits(a) == _leaf_bits(b)
+
+
+def _gang_sync(world, trees_by_step, codec, bucket_bytes):
+    def sync(w, group):
+        return [dcn.dcn_allreduce_grads(_as_port(trees[w.coll_rank]), group,
+                                        codec=codec, bucket_bytes=bucket_bytes)
+                for trees in trees_by_step]
+    return _on_gang(world, sync)
+
+
+# elements of the 1,040 where a rank-order f32 sum rounded once (the
+# gang's rule before it ran the ring) is off JAX's ring at world 3
+OLD_RULE_OFF = {"float32": 201, "bfloat16": 373}
+
+
+def _rank_order_mean(trees):
+    def one(*xs):
+        acc = xs[0].to(torch.float32, copy=True)
+        for x in xs[1:]:
+            acc += x
+        return acc.div_(len(xs)).to(xs[0].dtype)
+    return jax.tree_util.tree_map(one, *[_as_port(t) for t in trees])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gang_sync_matches_jax_ring(dtype):
+    """World 3: the gang's mean over the ring equals JAX's bit for bit;
+    a rank-order f32 sum rounded once is off it in OLD_RULE_OFF of the
+    1,040 elements."""
+    steps = [[_tree(r, 0, dtype == "bfloat16") for r in range(3)]]
+    want = _jax_ring_sync(3, steps, None, 1024)
+    got = _gang_sync(3, steps, None, 1024)
+    for r in range(3):
+        _assert_bits_equal(got[r], want[r])
+    width = 2 if dtype == "bfloat16" else 4
+
+    def elements(x):
+        return np.frombuffer(_leaf_bits(x), np.uint8).reshape(-1, width)
+
+    old = jax.tree_util.tree_leaves(_rank_order_mean(steps[0]))
+    off = sum(int((elements(a) != elements(b)).any(axis=1).sum())
+              for a, b in zip(old, jax.tree_util.tree_leaves(want[0][0])))
+    assert off == OLD_RULE_OFF[dtype]
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+def test_gang_codec_matches_jax_ring(codec):
+    """A codec on the gang, with error feedback by bucket (``dcn:{id}``)
+    over 2 calls, at world 2 and 3: JAX's bits."""
+    for world in (2, 3):
+        steps = [[_tree(r, s, False) for r in range(world)] for s in range(2)]
+        want = _jax_ring_sync(world, steps, codec, 1024)
+        got = _gang_sync(world, steps, codec, 1024)
+        for r in range(world):
+            _assert_bits_equal(got[r], want[r])
+
+
+def test_a_kill_in_the_middle_of_a_ring_aborts_the_survivors():
+    """World 3: workers 0 and 2 enter the ring, worker 1 is killed while
+    they wait on it; both raise CollectiveAbortError naming the group and
+    their rank, well before the 120 s timeout."""
+    wg = InProcessWorkerGroup(3)
+    group = wg.init_collective()
+    entered = threading.Barrier(3, timeout=30)
+
+    def run(w):
+        session._bind(session._init_session(
+            world_rank=w.coll_rank, world_size=3, collective_group=group,
+            worker=w))
+        try:
+            if w.coll_rank == 1:
+                entered.wait()
+                while True:  # ends at its kill (WorkerKilled)
+                    w.check()
+                    time.sleep(0.01)
+            entered.wait()
+            try:
+                dcn.dcn_allreduce_grads(_slice_grads(w.coll_rank), group)
+            except CollectiveAbortError as e:
+                return e
+            return None
+        finally:
+            session._bind(None)
+
+    try:
+        refs = [wg.submit(w, run) for w in wg.workers]
+        time.sleep(0.5)  # ranks 0 and 2 are waiting inside the ring
+        t0 = time.monotonic()
+        wg.kill(wg.workers[1])
+        errs = [wg.get(refs[r], timeout=30) for r in (0, 2)]
+        assert time.monotonic() - t0 < 10
+        with pytest.raises(WorkerDiedError):
+            wg.get(refs[1], timeout=30)
+    finally:
+        wg.shutdown()
+    for r, e in zip((0, 2), errs):
+        assert isinstance(e, CollectiveAbortError)
+        assert (e.group, e.rank) == (group, r)
+        assert e.op and "aborted" in str(e)

@@ -60,6 +60,9 @@ def test_port_files_exist():
             "ray_tpu_torch/parallel/sharding.py",
             "ray_tpu_torch/parallel/launch.py",
             "ray_tpu_torch/collective/mesh_ops.py",
+            "ray_tpu_torch/collective/compression.py",
+            "ray_tpu_torch/collective/ring.py",
+            "ray_tpu_torch/collective/collective.py",
             "ray_tpu_torch/ops/ring_attention.py",
             "ray_tpu_torch/ops/ulysses.py",
             "ray_tpu_torch/multichip.py",
@@ -87,6 +90,15 @@ def test_port_files_exist():
 def test_imports_neither_jax_nor_ray_tpu(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("name", ["compression", "ring", "collective"])
+def test_collective_engine_needs_no_ml_dtypes(name):
+    """The ring and its codecs round bf16 through torch: the card's host
+    has no ml_dtypes (JAX's codecs import it)."""
+    path = ROOT / "ray_tpu_torch" / "collective" / f"{name}.py"
+    roots = set(_imported_roots(path))
+    assert not roots & {*FORBIDDEN, "ml_dtypes"}, f"{name}.py imports {roots}"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -14,7 +14,8 @@ text and the member's traceback; a tensor off the CPU is refused with a
 ``TypeError`` naming the method, both ways (a ``meta`` tensor stands for a
 CUDA one); ``kill`` fails the calls in flight and every later one with
 ``actor_error``, and a member that exits on its own is found the same
-way; ``collective`` and ``deploy`` raise; no member outlives
+way; ``deploy`` and ``http_address`` raise (its collective is held in
+tests/test_torch_collective_procs.py); no member outlives
 ``shutdown()``; and no member imports JAX or ray_tpu. Every ``get``
 carries a timeout.
 """
@@ -233,9 +234,7 @@ def test_a_member_that_exits_on_its_own_is_found(rt):
         rt.get(rt.call(m, "echo", 1), timeout=GET_S)
 
 
-def test_collective_and_deploy_raise(rt, member):
-    with pytest.raises(NotImplementedError, match="InProcessRuntime"):
-        rt.collective([member], "g")
+def test_deploy_and_http_raise(rt, member):
     with pytest.raises(NotImplementedError, match="InProcessRuntime"):
         rt.deploy(Recorder, name="r", route_prefix="/r",
                   max_concurrent_queries=1)

@@ -12,7 +12,7 @@ JAX's, on the CPU through the in-process runtime.
   rule (_assert_adam_close: that tolerance above f32's gradient noise
   floor, the steps' bound below it);
 - the shard guard raising on a batch of 1; the runtime's collective
-  summing in rank order and raising CollectiveTimeoutError past its
+  summing over the ring and raising CollectiveTimeoutError past its
   deadline;
 - PPO with num_learners=2 in process against PPO with one learner, from
   the same seeds, for 2 iterations.
@@ -240,7 +240,9 @@ def test_sac_learner_group_draws_the_single_learners_noise():
 
 def test_in_process_collective_sums_in_rank_order_and_times_out():
     """The runtime's collective: each rank's callable returns the sum of
-    every rank's f32 vector, taken in rank order, as a fresh array; a
+    every rank's f32 vector as a fresh array, each segment folded in the
+    ring's order (a rotation of rank order: segment s is
+    v_s + (v_{s-1} + v_{s-2}) at world 3, as JAX's ring folds it); a
     rank whose peers never arrive raises CollectiveTimeoutError."""
     rt = InProcessRuntime()
 
@@ -249,8 +251,8 @@ def test_in_process_collective_sums_in_rank_order_and_times_out():
 
     handles = [rt.spawn(Member, {}) for _ in range(3)]
     fns = rt.collective(handles, "g")
-    vecs = [np.float32([1e8, 1.0, 2.0]), np.float32([1.0, -1.0, 0.5]),
-            np.float32([-1e8, 3.0, 0.25])]
+    vecs = [np.float32([1e8, 1e8, 2.0]), np.float32([1.0, 1.0, 0.5]),
+            np.float32([-1e8, -1e8, 0.25])]
     out = [None] * 3
 
     def run(r):
@@ -261,7 +263,9 @@ def test_in_process_collective_sums_in_rank_order_and_times_out():
         th.start()
     for th in threads:
         th.join(timeout=30)
-    want = (vecs[0] + vecs[1]) + vecs[2]  # 1e8 + 1 rounds to 1e8 first
+    want = np.float32([vecs[s][s] + (vecs[s - 1][s] + vecs[s - 2][s])
+                       for s in range(3)])
+    assert want[1] == 1.0  # in rank order, 1e8 + 1 rounds to 1e8 first: 0
     for o in out:
         np.testing.assert_array_equal(o, want)
     assert out[0] is not out[1]
@@ -270,6 +274,47 @@ def test_in_process_collective_sums_in_rank_order_and_times_out():
     with pytest.raises(CollectiveTimeoutError):
         lone(np.zeros(2, np.float32), timeout=0.3)
     assert time.monotonic() - t0 < 10
+
+
+class _OneSpawnFails(InProcessRuntime):
+    """Refuses to build the member named ``refused``; records the members
+    built and killed."""
+
+    def __init__(self, refused: str):
+        super().__init__()
+        self.refused = refused
+        self.built, self.killed = [], []
+
+    def spawn(self, cls, kwargs, *, name="", max_concurrency=1):
+        if name == self.refused:
+            raise RuntimeError(f"no room for {name}")
+        handle = super().spawn(cls, kwargs, name=name,
+                               max_concurrency=max_concurrency)
+        self.built.append(handle)
+        return handle
+
+    def kill(self, handle):
+        self.killed.append(handle)
+        super().kill(handle)
+
+
+@pytest.mark.parametrize("kind", ["ppo", "sac"])
+def test_a_failed_learner_spawn_kills_the_learners_built(kind):
+    """The group spawns its members at once (``serve.runtime
+    .spawn_at_once``): one refused spawn raises its error, and every
+    member built is killed, none left running."""
+    cls = t_lg.LearnerActor if kind == "ppo" else t_lg.SACLearnerActor
+    rt = _OneSpawnFails(f"{cls.__name__}-1")
+    with pytest.raises(RuntimeError, match=f"no room for {cls.__name__}-1"):
+        if kind == "ppo":
+            t_lg.LearnerGroup(4, 2, num_learners=3, device="cpu", runtime=rt)
+        else:
+            t_lg.SACLearnerGroup(3, 1, num_learners=3, device="cpu",
+                                 runtime=rt)
+    assert sorted(h.name for h in rt.built) == [f"{cls.__name__}-0",
+                                                f"{cls.__name__}-2"]
+    assert {id(h) for h in rt.killed} == {id(h) for h in rt.built}
+    assert all(h.dead for h in rt.built)
 
 
 def test_ppo_with_two_learners_matches_one():

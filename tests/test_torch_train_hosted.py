@@ -74,12 +74,15 @@ class _Member:
         self.addr = _get_worker().addr
 
     def allreduce(self, tensor, group_name, op="sum", *, codec=None,
-                  transport=None, timeout=None, ef_tag=None):
+                  transport=None, timeout=None, ef_tag=None, out=None):
         from ray_tpu.collective import collective as col
 
-        out = col.allreduce(tensor.numpy(), group_name, op, codec=codec,
-                            transport=transport, timeout=timeout, ef_tag=ef_tag)
-        return torch.from_numpy(np.asarray(out))
+        res = torch.from_numpy(np.asarray(col.allreduce(
+            tensor.numpy(), group_name, op, codec=codec, transport=transport,
+            timeout=timeout, ef_tag=ef_tag)))
+        if out is None or out.dtype != res.dtype:
+            return res
+        return out.copy_(res.reshape(out.shape))
 
     def abort_collectives(self, reason=""):
         from ray_tpu.collective import collective as col
