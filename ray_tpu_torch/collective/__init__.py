@@ -10,9 +10,18 @@ from ray_tpu_torch.collective.collective import (  # noqa: F401
     Group,
     LocalFabric,
     SocketFabric,
+    abort_all_local,
     allgather,
     allreduce,
+    barrier,
+    broadcast,
+    destroy_collective_group,
+    get_collective_group_size,
+    get_rank,
+    init_collective_group,
+    reduce,
     reducescatter,
+    reform_group,
 )
 from ray_tpu_torch.collective.compression import (  # noqa: F401
     Codec,

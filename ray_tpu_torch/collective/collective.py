@@ -2,10 +2,10 @@
 
 The port's counterpart of the group layer of
 ray_tpu/collective/collective.py: :class:`CollectiveAbortError` and
-:class:`CollectiveTimeoutError`, a mailbox, :class:`Group`, and
-``allreduce``, ``reducescatter`` and ``allgather`` with transport
-``ring`` (the default: ``ring.py``) or ``star`` (rank 0 reduces and sends
-the result back, the fallback).
+:class:`CollectiveTimeoutError`, a mailbox, :class:`Group`, ``allreduce``,
+``reducescatter`` and ``allgather`` with transport ``ring`` (the default:
+``ring.py``) or ``star`` (rank 0 reduces and sends the result back, the
+fallback), the rooted ``reduce`` and ``broadcast``, and ``barrier``.
 
 JAX's ``Group`` sends over its runtime's RPC and finds its peers through
 the control plane's KV. The port's takes a fabric instead, which moves
@@ -14,19 +14,38 @@ frames between the ranks of one group incarnation:
 - :class:`LocalFabric`: the ranks are threads of this process (the train
   gang, ``InProcessRuntime``); a send is a put into the receiver's
   mailbox, and a ``check`` of the caller's runs at every wait;
-- :class:`SocketFabric`: the ranks are processes (``ProcessRuntime``);
-  each listens on an ``AF_UNIX`` socket and is linked to its ring
-  neighbours and to rank 0, one reader thread a link feeding its mailbox.
-  EOF on a link is the peer's death: the group aborts, and the abort is
+- :class:`SocketFabric`: the ranks are processes (``ProcessRuntime``, the
+  process train gang); each listens on an ``AF_UNIX`` socket and is
+  linked to its ring neighbours and to rank 0, one reader thread a link
+  feeding the process's mailbox. Every frame carries its epoch. EOF on a
+  link is the peer's death: the incarnation aborts, and the abort is
   sent on over the other links.
 
-A fabric has ``mailbox(rank)``, ``send(src, dst, key, obj)``,
-``abort_record(rank)`` (None, or ``{"reason", "origin"}`` once the
-incarnation is aborted; it may also raise for the caller itself) and
+A fabric has ``send(src, dst, key, obj)``, ``take(rank, key, timeout,
+abort)``, ``abort_record(rank)`` (None, or ``{"reason", "origin"}`` once
+the incarnation is aborted; it may also raise for the caller itself) and
 ``POLL_S``, the longest a wait goes without looking at the abort.
 
-Not ported: the KV rendezvous, epoch publishing and peer probes, and
-``send`` / ``recv`` / ``paced_*`` (ROADMAP).
+Group epochs, for the ranks that are processes: a process keeps JAX's
+registry of its live groups by name (``_groups``), the times it has
+joined each name (``_inc_counts``) and the lowest epoch whose frames it
+still takes (``_min_epochs``). :func:`init_collective_group`,
+:func:`reform_group` (which must bump past the live epoch, and drops the
+old incarnation's error-feedback residuals), :func:`destroy_collective_group`
+(which purges the group's frames and raises the floor, so a straggler of
+an older epoch is dropped at ingress), :func:`abort_all_local`,
+:func:`get_rank` and :func:`get_collective_group_size` are JAX's. The
+port has no control-plane KV: where JAX's ranks find each other under
+epoch-namespaced keys (``{group}@{epoch}/{rank}``) and agree on the
+epoch through its channel, the driver picks the epoch (the highest of
+the members' live epochs, plus one) and hands out fresh ``AF_UNIX``
+addresses for each epoch under its runtime's store directory. JAX's peer
+probe becomes an abortable join: :meth:`SocketFabric.connect` waits with
+its abort polled, so a driver that sees a member die during a join
+aborts the others' joins (:func:`abort_join`, from a second call thread
+of each member), which raise :class:`CollectiveAbortError` at once. One rank of a group a process: the mailbox is the process's.
+
+Not ported: ``send`` / ``recv`` / ``paced_*`` (ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,6 +53,7 @@ from __future__ import annotations
 import logging
 import os
 import pickle
+import socket
 import threading
 import time
 from multiprocessing import connection as mp_connection
@@ -92,7 +112,9 @@ def _transport(override: str | None = None) -> str:
 
 
 class Mailbox:
-    """One rank's inbox for one group incarnation, keyed (seq, src, tag)."""
+    """An inbox of frames: one rank's for one incarnation of a
+    ``LocalFabric``, keyed (seq, src, tag); a process's for its socket
+    groups, keyed (group, epoch, seq, src, tag)."""
 
     def __init__(self):
         self.msgs: dict[tuple, Any] = {}
@@ -163,10 +185,9 @@ class Group:
                   timeout: float | None = None, op: str | None = None):
         timeout = compression.TIMEOUT_S if timeout is None else timeout
         try:
-            return self.fabric.mailbox(self.rank).take(
-                (seq, src_rank, tag), timeout,
-                abort=lambda: self.fabric.abort_record(self.rank),
-                poll=self.fabric.POLL_S)
+            return self.fabric.take(
+                self.rank, (seq, src_rank, tag), timeout,
+                abort=lambda: self.fabric.abort_record(self.rank))
         except _Aborted as a:
             raise self._abort_error(a.info, op or tag) from None
         except TimeoutError:
@@ -195,11 +216,11 @@ class LocalFabric:
         self.check = check
         self._abort: dict | None = None
 
-    def mailbox(self, rank: int) -> Mailbox:
-        return self.boxes[rank]
-
     def send(self, src: int, dst: int, key: tuple, obj) -> None:
         self.boxes[dst].put(key, obj)
+
+    def take(self, rank: int, key: tuple, timeout: float, abort):
+        return self.boxes[rank].take(key, timeout, abort, self.POLL_S)
 
     def abort_record(self, rank: int) -> dict | None:
         if self._abort is None and self.check is not None:
@@ -207,6 +228,44 @@ class LocalFabric:
             if info is not None:
                 self._abort = info
         return self._abort
+
+
+# ---------------------------------------------------------------------------
+# a process's groups: the mailbox, the registry, the ingress floor
+# ---------------------------------------------------------------------------
+
+_groups: dict[str, Group] = {}
+# times THIS process has joined each group name (JAX publishes it at
+# rendezvous; here the driver reads it to pick a first epoch)
+_inc_counts: dict[str, int] = {}
+# the lowest live epoch a name: frames below it are stragglers of a
+# destroyed incarnation, dropped at ingress (nothing would take them)
+_min_epochs: dict[str, int] = {}
+# the fabrics of joins in progress, by name: abort_all_local ends them
+_joins: dict[str, "SocketFabric"] = {}
+# (name, epoch) -> reason: joins a driver aborted before they started
+_join_aborts: dict[tuple, str] = {}
+_box: Mailbox | None = None
+_lock = threading.Lock()
+
+
+def _mailbox() -> Mailbox:
+    """This process's inbox for socket groups, keyed (group, epoch, seq,
+    src, tag) as JAX's."""
+    global _box
+    with _lock:
+        if _box is None:
+            _box = Mailbox()
+        return _box
+
+
+def _ingress(group: str, epoch: int, key: tuple, obj) -> bool:
+    """A frame arriving for ``group`` at ``epoch`` (JAX's
+    ``_rpc_coll_msg``): False, and dropped, below the group's floor."""
+    if epoch < _min_epochs.get(group, 0):
+        return False
+    _mailbox().put((group, epoch) + tuple(key), obj)
+    return True
 
 
 def _links(world: int) -> set[tuple[int, int]]:
@@ -220,27 +279,50 @@ def _links(world: int) -> set[tuple[int, int]]:
     return pairs
 
 
+def _shut(conn) -> None:
+    """Close a link so that the threads reading either end see EOF."""
+    try:
+        s = socket.socket(fileno=os.dup(conn.fileno()))
+    except OSError:
+        return
+    try:
+        s.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    finally:
+        s.close()
+    try:
+        conn.close()
+    except OSError:
+        pass
+
+
 class SocketFabric:
-    """One member's side of a group of processes (module docstring). It
-    listens on ``addresses[rank]``; for each linked pair the higher rank
-    connects to the lower, says its rank, and both ends read frames off
-    the link on a thread of their own. A frame is a pickled ``("msg",
-    key, obj)`` or ``("abort", record)``."""
+    """One member's side of an incarnation of a group of processes (module
+    docstring). It listens on ``addresses[rank]``; for each linked pair
+    the higher rank connects to the lower, says its rank, and both ends
+    read frames off the link on a thread of their own. A frame is a
+    pickled ``("msg", epoch, key, obj)`` or ``("abort", epoch,
+    record)``: a message goes to the process's mailbox through the
+    ingress floor, an abort of another epoch is ignored."""
 
     POLL_S = compression.ABORT_POLL_S
 
-    def __init__(self, name: str, rank: int, addresses: list, authkey: bytes):
+    def __init__(self, name: str, rank: int, addresses: list, authkey: bytes,
+                 epoch: int = 1):
         self.name = name
         self.rank = rank
         self.addresses = addresses
         self.authkey = authkey
-        self.box = Mailbox()
+        self.epoch = epoch
         self.cond = threading.Condition()
         self.conns: dict[int, Any] = {}
         self.send_locks: dict[int, threading.Lock] = {}
         self.peers = {lo if hi == rank else hi
                       for lo, hi in _links(len(addresses)) if rank in (lo, hi)}
         self._abort: dict | None = None
+        self._aborted = threading.Event()
+        self._closed = False
         self.listener = mp_connection.Listener(addresses[rank], "AF_UNIX",
                                                authkey=authkey)
         threading.Thread(target=self._accept, name=f"{name}.accept",
@@ -258,59 +340,115 @@ class SocketFabric:
 
     def _adopt(self, peer: int, conn) -> None:
         with self.cond:
+            if self._closed:
+                _shut(conn)
+                return
             self.conns[peer] = conn
             self.send_locks[peer] = threading.Lock()
             self.cond.notify_all()
         threading.Thread(target=self._read, args=(peer, conn),
                          name=f"{self.name}.link{peer}", daemon=True).start()
 
-    def connect(self, timeout: float) -> None:
-        """Open the links to the lower ranks (retrying until their
-        listeners are up) and wait for the higher ranks' links."""
-        deadline = time.monotonic() + timeout
-        for peer in sorted(p for p in self.peers if p < self.rank):
-            if peer in self.conns:
-                continue
+    def _join_error(self) -> CollectiveAbortError:
+        a = self._abort or {"reason": "the incarnation was closed"}
+        return CollectiveAbortError(self.name, self.rank, self.epoch, "join",
+                                    a["reason"], origin_rank=a.get("origin"))
+
+    def _dial(self, peer: int, deadline: float, timeout: float):
+        """A link to a lower rank, retried until its listener is up. The
+        dial runs on a thread of its own, so that an abort ends the wait
+        even where the peer listens and never answers."""
+        out: dict = {}
+        done = threading.Event()
+
+        def go():
             while True:
                 try:
                     conn = mp_connection.Client(self.addresses[peer], "AF_UNIX",
                                                 authkey=self.authkey)
-                    break
-                except (FileNotFoundError, ConnectionRefusedError):
-                    if time.monotonic() > deadline:
-                        raise CollectiveTimeoutError(
-                            f"collective group '{self.name}' rank {self.rank}:"
-                            f" rank {peer} did not listen within {timeout}s"
-                        ) from None
+                except (OSError, EOFError, mp_connection.AuthenticationError):
+                    if self._aborted.is_set() or time.monotonic() > deadline:
+                        break
                     time.sleep(0.01)
-            conn.send_bytes(pickle.dumps(self.rank))
+                    continue
+                if self._aborted.is_set():
+                    _shut(conn)  # the join was abandoned meanwhile
+                else:
+                    out["conn"] = conn
+                break
+            done.set()
+
+        threading.Thread(target=go, name=f"{self.name}.dial{peer}",
+                         daemon=True).start()
+        while not done.is_set():
+            if self._aborted.wait(min(self.POLL_S, max(
+                    0.0, deadline - time.monotonic()) + 0.01)):
+                raise self._join_error()
+            if time.monotonic() > deadline + 1.0:
+                break
+        if "conn" not in out:
+            if self._abort is not None:
+                raise self._join_error()
+            raise CollectiveTimeoutError(
+                f"collective group '{self.name}' rank {self.rank} epoch "
+                f"{self.epoch}: rank {peer} did not listen within {timeout}s")
+        return out["conn"]
+
+    def connect(self, timeout: float) -> None:
+        """Open the links to the lower ranks (retrying until their
+        listeners are up) and wait for the higher ranks' links. Raises
+        :class:`CollectiveAbortError` once the incarnation is aborted
+        (a linked peer's EOF, or :meth:`abort` from another thread: a
+        driver ending the join), :class:`CollectiveTimeoutError` past
+        ``timeout``."""
+        deadline = time.monotonic() + timeout
+        for peer in sorted(p for p in self.peers if p < self.rank):
+            if peer in self.conns:
+                continue
+            conn = self._dial(peer, deadline, timeout)
+            try:
+                conn.send_bytes(pickle.dumps(self.rank))
+            except OSError:
+                self.abort(f"lost the link to rank {peer} while joining",
+                           origin=peer)
+                raise self._join_error() from None
             self._adopt(peer, conn)
         with self.cond:
             while not self.peers <= set(self.conns):
                 if self._abort is not None:
-                    return
+                    raise self._join_error()
                 left = deadline - time.monotonic()
                 if left <= 0:
                     raise CollectiveTimeoutError(
-                        f"collective group '{self.name}' rank {self.rank}: "
-                        f"ranks {sorted(self.peers - set(self.conns))} did "
-                        f"not link within {timeout}s")
+                        f"collective group '{self.name}' rank {self.rank} "
+                        f"epoch {self.epoch}: ranks "
+                        f"{sorted(self.peers - set(self.conns))} did not "
+                        f"link within {timeout}s")
                 self.cond.wait(min(left, self.POLL_S))
+            if self._abort is not None:
+                raise self._join_error()
 
     def _read(self, peer: int, conn) -> None:
         while True:
             try:
                 msg = pickle.loads(conn.recv_bytes())
             except (EOFError, OSError):
-                self.abort(f"lost the link to rank {peer}", origin=peer)
+                if not self._closed:
+                    self.abort(f"lost the link to rank {peer}", origin=peer)
                 return
-            if msg[0] == "msg":
-                self.box.put(msg[1], msg[2])
-            else:
-                self.abort(msg[1]["reason"], origin=msg[1].get("origin"))
+            self._deliver(msg)
 
-    def mailbox(self, rank: int) -> Mailbox:
-        return self.box
+    def _deliver(self, msg) -> None:
+        """A frame off a link: a message through the ingress floor, an
+        abort of this epoch applied (one of another epoch is stale)."""
+        if msg[0] == "msg":
+            _ingress(self.name, msg[1], msg[2], msg[3])
+        elif msg[1] == self.epoch:
+            self.abort(msg[2]["reason"], origin=msg[2].get("origin"))
+
+    def take(self, rank: int, key: tuple, timeout: float, abort):
+        return _mailbox().take((self.name, self.epoch) + tuple(key), timeout,
+                               abort, self.POLL_S)
 
     def _write(self, peer: int, data: bytes) -> None:
         with self.send_locks[peer]:
@@ -321,36 +459,239 @@ class SocketFabric:
             raise ValueError(f"collective group '{self.name}' rank {src} has "
                              f"no link to rank {dst}")
         try:
-            self._write(dst, pickle.dumps(("msg", key, obj), protocol=5))
+            self._write(dst, pickle.dumps(("msg", self.epoch, key, obj),
+                                          protocol=5))
         except OSError:
             self.abort(f"cannot reach rank {dst}", origin=dst)
 
-    def abort(self, reason: str, origin: int | None = None) -> None:
-        """Abort this incarnation here and send the abort on over every
-        other link (once: a second abort is dropped)."""
+    def abort(self, reason: str, origin: int | None = None, *,
+              forward: bool = True) -> bool:
+        """Abort this incarnation here and, with ``forward``, send the
+        abort on over every other link. The first abort stays: a second
+        returns False."""
         with self.cond:
             if self._abort is not None:
-                return
+                return False
             self._abort = {"reason": reason, "origin": origin}
+            self._aborted.set()
             self.cond.notify_all()
-            peers = [p for p in self.conns if p != origin]
-        self.box.wake()
-        logger.warning("collective group '%s' rank %d aborted: %s",
-                       self.name, self.rank, reason)
-        data = pickle.dumps(("abort", self._abort))
+            peers = [p for p in self.conns if p != origin] if forward else []
+        _mailbox().wake()
+        logger.warning("collective group '%s' rank %d epoch %d aborted: %s",
+                       self.name, self.rank, self.epoch, reason)
+        if peers:
+            data = pickle.dumps(("abort", self.epoch, self._abort))
 
-        def fan_out():
-            for p in peers:
-                try:
-                    self._write(p, data)
-                except OSError:
-                    pass
+            def fan_out():
+                for p in peers:
+                    try:
+                        self._write(p, data)
+                    except OSError:
+                        pass
 
-        threading.Thread(target=fan_out, name=f"{self.name}.abort",
-                         daemon=True).start()
+            threading.Thread(target=fan_out, name=f"{self.name}.abort",
+                             daemon=True).start()
+        return True
 
     def abort_record(self, rank: int) -> dict | None:
         return self._abort
+
+    def close(self) -> None:
+        """Close the listener (its socket file goes with it) and every
+        link; the peers see EOF."""
+        with self.cond:
+            self._closed = True
+            conns = list(self.conns.values())
+            self.cond.notify_all()
+        self._aborted.set()  # a dial in flight gives up
+        try:
+            sock = getattr(getattr(self.listener, "_listener", None),
+                           "_socket", None)
+            if sock is not None:
+                sock.shutdown(socket.SHUT_RDWR)  # wakes the accept thread
+        except OSError:
+            pass
+        try:
+            self.listener.close()
+        except OSError:
+            pass
+        for conn in conns:
+            _shut(conn)
+
+
+# ---------------------------------------------------------------------------
+# joining, reforming and leaving a socket group (JAX's group lifecycle)
+# ---------------------------------------------------------------------------
+
+
+def _join(name: str, world_size: int, rank: int, addresses: list,
+          authkey: bytes, epoch: int, timeout: float) -> Group:
+    """Listen, link and wait for every link of incarnation ``epoch``;
+    :func:`abort_all_local` and :func:`abort_join` end the wait."""
+    with _lock:
+        reason = _join_aborts.pop((name, epoch), None)
+        if reason is None:
+            fabric = SocketFabric(name, rank, list(addresses), authkey,
+                                  epoch=epoch)
+            _joins[name] = fabric
+    if reason is not None:
+        raise CollectiveAbortError(name, rank, epoch, "join", reason)
+    try:
+        fabric.connect(timeout)
+    except BaseException:
+        fabric.close()
+        raise
+    finally:
+        with _lock:
+            if _joins.get(name) is fabric:
+                del _joins[name]
+    return Group(name, world_size, rank, fabric, epoch=epoch)
+
+
+def _adopt_group(g: Group) -> Group:
+    _min_epochs[g.name] = max(_min_epochs.get(g.name, 0), g.epoch)
+    _inc_counts[g.name] = g.epoch
+    _groups[g.name] = g
+    return g
+
+
+def init_collective_group(world_size: int, rank: int, backend: str = "cpu",
+                          group_name: str = "default", timeout: float = 120.0,
+                          *, addresses: list, authkey: bytes,
+                          epoch: int | None = None) -> Group:
+    """Join a socket group at ``addresses`` (one a rank) and register it
+    under ``group_name``. JAX's epoch is the highest of the ranks' join
+    counts plus one, agreed over its KV; a driver gives it as ``epoch``
+    (None: this process's own count plus one). A live group of that name
+    is torn down first."""
+    if backend != "cpu":
+        raise ValueError(f"the host collective's backend is 'cpu', not "
+                         f"{backend!r}")
+    if group_name in _groups:
+        destroy_collective_group(group_name)
+    if epoch is None:
+        epoch = _inc_counts.get(group_name, 0) + 1
+    return _adopt_group(_join(group_name, world_size, rank, addresses,
+                              authkey, epoch, timeout))
+
+
+def reform_group(world_size: int, rank: int, group_name: str = "default", *,
+                 addresses: list, authkey: bytes, epoch: int | None = None,
+                 timeout: float | None = None) -> Group:
+    """Rebuild a group over survivors and new members under a bumped
+    epoch. ``epoch`` must bump past this process's live incarnation
+    (ValueError otherwise, as JAX's: its frames would fall under the
+    floor that tearing the old one down raises); None bumps it by one,
+    and a process with no live group must be given it (there is no
+    epoch channel to follow). The old incarnation is destroyed first:
+    its frames purged, its error-feedback residuals dropped (membership
+    changes the ring's segments, so an old residual would fold into the
+    wrong elements), its floor raised."""
+    timeout = compression.TIMEOUT_S if timeout is None else timeout
+    old = _groups.get(group_name)
+    old_epoch = old.epoch if old is not None else None
+    if epoch is not None and old_epoch is not None and epoch <= old_epoch:
+        raise ValueError(
+            f"reform_group('{group_name}'): epoch {epoch} does not bump "
+            f"past the live incarnation's epoch {old_epoch}")
+    if epoch is None:
+        if old_epoch is None:
+            raise ValueError(f"reform_group('{group_name}'): no live "
+                             "incarnation here, so the epoch must be given")
+        epoch = old_epoch + 1
+    if old is not None:
+        destroy_collective_group(group_name)
+    g = _adopt_group(_join(group_name, world_size, rank, addresses, authkey,
+                           epoch, timeout))
+    logger.info("collective group '%s' rank %d reformed at epoch %d (world "
+                "%d)", group_name, rank, epoch, world_size)
+    return g
+
+
+def destroy_collective_group(group_name: str = "default") -> None:
+    """Tear down this rank's view of a group: its pending frames purged,
+    its residuals and stats dropped, the ingress floor raised past its
+    epoch, its links and listener closed."""
+    with _lock:
+        g = _groups.pop(group_name, None)
+    box = _box
+    if box is not None:
+        with box.cond:
+            for k in [k for k in box.msgs if k[0] == group_name]:
+                del box.msgs[k]
+    ring.purge_group(group_name)
+    if g is not None:
+        _min_epochs[group_name] = max(_min_epochs.get(group_name, 0),
+                                      g.epoch + 1)
+        close = getattr(g.fabric, "close", None)
+        if close is not None:
+            close()
+
+
+def abort_all_local(reason: str) -> int:
+    """Abort every live incarnation and every join in progress in THIS
+    process, sending no frame to the peers (JAX's in-place-resume quiesce
+    hook; a driver's abort of a join). Returns how many were newly
+    aborted."""
+    with _lock:
+        fabrics = [g.fabric for g in _groups.values()] + list(_joins.values())
+    n = 0
+    for f in fabrics:
+        abort = getattr(f, "abort", None)
+        if abort is not None and abort(reason, forward=False):
+            n += 1
+    return n
+
+
+def abort_join(group_name: str, epoch: int, reason: str) -> None:
+    """End this process's join of ``group_name`` at ``epoch``: the join in
+    progress raises :class:`CollectiveAbortError` at once, one that has
+    not started yet raises as it starts, and an incarnation that has
+    already formed aborts. A driver calls this (from a second call
+    thread) when another member dies during the join."""
+    with _lock:
+        f = _joins.get(group_name)
+        g = _groups.get(group_name)
+        if f is not None and f.epoch == epoch:
+            target = f
+        elif g is not None and g.epoch == epoch:
+            target = g.fabric
+        else:
+            target = None
+            _join_aborts[(group_name, epoch)] = reason
+    if target is not None:
+        target.abort(reason, forward=False)
+
+
+def collective_epoch(group_name: str) -> int:
+    """This process's live epoch of the group, 0 without one (JAX's
+    ``__ray_tpu_collective_epoch__``)."""
+    g = _groups.get(group_name)
+    return 0 if g is None else g.epoch
+
+
+def join_count(group_name: str) -> int:
+    """How many times this process has joined the group name."""
+    return _inc_counts.get(group_name, 0)
+
+
+def get_rank(group_name: str = "default") -> int:
+    g = _groups.get(group_name)
+    return -1 if g is None else g.rank
+
+
+def get_collective_group_size(group_name: str = "default") -> int:
+    g = _groups.get(group_name)
+    return -1 if g is None else g.world_size
+
+
+def get_group(group_name: str = "default") -> Group:
+    """The live group of that name in this process."""
+    g = _groups.get(group_name)
+    if g is None:
+        raise RuntimeError(f"collective group '{group_name}' not initialized "
+                           "in this process")
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +838,43 @@ def reducescatter(g: Group, tensor, op: str = "sum", *, codec=None,
     return ring._like(shard, tensor)
 
 
+def reduce(g: Group, tensor, dst_rank: int = 0, op: str = "sum", *,
+           timeout: float | None = None):
+    """JAX's ``reduce``: ``dst_rank`` gets the reduction of every rank's
+    payload (its own first, then the others in rank order, as JAX
+    stacks them) and the others get their own payload back."""
+    t = as_tensor(tensor)
+    seq = g._next_seq()
+    if g.rank == dst_rank:
+        parts = [t] + [as_tensor(g._recv_obj(r, seq, "red", timeout,
+                                             op="reduce"))
+                       for r in range(g.world_size) if r != dst_rank]
+        return ring._like(_star_reduce(op, parts), tensor)
+    g._send_obj(dst_rank, seq, "red", t.clone())
+    return tensor
+
+
+def broadcast(g: Group, tensor, src_rank: int = 0, *,
+              timeout: float | None = None):
+    """JAX's ``broadcast``: every rank gets ``src_rank``'s payload (the
+    others' ``tensor`` only gives the kind of their result)."""
+    seq = g._next_seq()
+    if g.rank == src_rank:
+        t = as_tensor(tensor)
+        for r in range(g.world_size):
+            if r != src_rank:
+                g._send_obj(r, seq, "bc", t.clone())
+        return tensor
+    return ring._like(as_tensor(g._recv_obj(src_rank, seq, "bc", timeout,
+                                            op="broadcast")), tensor)
+
+
+def barrier(g: Group) -> None:
+    """Returns once every rank has entered it (JAX's: an allreduce of one
+    zero)."""
+    allreduce(g, np.zeros(1))
+
+
 # ---------------------------------------------------------------------------
 # the learner groups' callables
 # ---------------------------------------------------------------------------
@@ -549,7 +927,10 @@ class MemberAllreducer(Allreducer):
                 g = _member_groups[addresses[rank]] = Group(name, world, rank,
                                                             fabric)
         self.group = g
-        g.fabric.connect(compression.TIMEOUT_S)
+        try:
+            g.fabric.connect(compression.TIMEOUT_S)
+        except CollectiveAbortError:
+            pass  # the abort stays: the group's first collective raises it
 
 
 def socket_addresses(root: str, token: str, world: int) -> list[str]:

@@ -57,7 +57,10 @@ default.
   flight on it, and every later call, raises :class:`ActorError` from
   ``get``. A member that dies on its own is found by EOF on its pipe,
   with the same effect, so no ``get`` or ``wait`` hangs on a dead
-  member. A member whose parent dies sees EOF and exits.
+  member. A member whose parent dies sees EOF and exits. ``on_death``,
+  if given, is called with the member's handle once its process is
+  reaped, killed or not (the process train gang records the death and
+  restarts the worker there); it must return quickly.
 - **Collective.** ``collective(handles, group_name)`` returns one
   picklable callable a member (``collective.MemberAllreducer``). Passed
   to its member, it becomes there the member's own ``Group`` over a
@@ -449,7 +452,8 @@ class ProcessRuntime:
 
     actor_error = ActorError
 
-    def __init__(self):
+    def __init__(self, *, on_death=None):
+        self._on_death = on_death
         self._ctx = multiprocessing.get_context("spawn")
         self._root = tempfile.mkdtemp(prefix="ray_tpu_torch_store_")
         self._members: list[Member] = []
@@ -600,6 +604,11 @@ class ProcessRuntime:
         handle.process.join(REAP_TIMEOUT_S)
         self._fail_all(handle, f"{handle.name} died (exit code "
                                f"{handle.process.exitcode})")
+        if self._on_death is not None:
+            try:
+                self._on_death(handle)
+            except Exception:  # noqa: BLE001 — the reaping goes on
+                traceback.print_exc()
         _bury(handle)
         handle.reaped.set()  # kill() returns with the member's puts freed
         handle.conn.close()

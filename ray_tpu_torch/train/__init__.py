@@ -11,7 +11,8 @@ optimizer, and the train runtime.
   ``get_dataset_shard``, ...)
 - dcn.py: ``dcn_allreduce_grads``, the bucketed gradient sync
 - worker_group.py / backend_executor.py: the worker gang (an injected
-  runtime, in-process by default) and the dcn and torch backends
+  runtime: threads of this process by default, ``ProcessTrainRuntime``
+  for a process a worker) and the dcn and torch backends
 - trainer.py: ``Trainer.fit`` with in-place elastic resume and gang
   restart (JAX's ``JaxTrainer``)
 - fault_injection.py: the runtime's chaos sites

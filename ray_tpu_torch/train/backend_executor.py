@@ -19,7 +19,13 @@ from an injected runtime (``train/worker_group.py``; the in-process
   host address the runtime gives it (JAX's ``_pick_coordinator``). A
   broken group cannot be reformed, so a failure restarts the whole gang.
   It needs a process per worker: a runtime without (the in-process one)
-  runs it at world size 1 only.
+  runs it at world size 1 only. NCCL needs a card per rank: two ranks on
+  one card are not supported, and ``_setup_backend`` raises for them
+  (gloo on the CPU runs any world on the process gang).
+
+The functions below are module-level, so a worker process unpickles them
+by reference; a worker in a process gives its spans back with the reply
+of each call (``train/worker_group.py``).
 
 JAX's ``_config_local_jax`` (the jax platform and virtual device flags
 of a fresh actor process) has no counterpart: the device is the loop's
@@ -70,6 +76,15 @@ def _setup_backend(worker, coordinator: str, world_size: int, device: str):
         worker.state["world_size"] = 1
         return {"rank": 0, "world_size": 1}
     backend = "nccl" if device == "cuda" else "gloo"
+    if backend == "nccl":
+        import torch
+
+        if torch.cuda.device_count() < world_size:
+            raise RuntimeError(
+                f"backend 'torch' on cuda: NCCL needs a card per rank, and "
+                f"this host has {torch.cuda.device_count()} for world size "
+                f"{world_size} (two ranks on one card are not supported)")
+        torch.cuda.set_device(worker.worker_idx)
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             rank=worker.worker_idx, world_size=world_size)
     worker.state["world_size"] = world_size

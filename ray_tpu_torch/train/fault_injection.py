@@ -14,11 +14,13 @@ count, so the same spec trips at the same call every run.
 
 ``die`` raises :class:`InjectedFault`; ``drop`` is returned for the site
 to skip its side effect; ``exit`` ends the calling worker: the exit
-handler of the calling thread when one is set (an in-process worker
-registers one that kills only itself), else ``os._exit``. Sites:
+handler of the calling thread when one is set, called with the spec's
+``exit_code`` (an in-process worker registers one that kills only
+itself; a worker in a process of its own one that ends the process
+with ``os._exit``, as JAX's does), else ``os._exit``. Sites:
 ``checkpoint.save`` (per written member; ``drop`` = a torn write),
 ``checkpoint.restore`` (per restore; ``drop`` = detected bitrot) and
-``collective.allreduce`` (per gradient bucket on the in-process gang;
+``collective.allreduce`` (per gradient bucket, on either train gang;
 ctx group, rank, bucket). :func:`prepare` and :func:`matches` are the
 validation and the matching rule, which ``parallel/pipeline_runtime.py``
 applies to its per-session specs too.
@@ -89,8 +91,9 @@ def clear() -> None:
         _specs.clear()
 
 
-def set_exit_handler(handler: Callable[[], None] | None) -> None:
-    """What ``exit`` does on the calling thread (None: ``os._exit``)."""
+def set_exit_handler(handler: Callable[[int], None] | None) -> None:
+    """What ``exit`` does on the calling thread: ``handler(exit_code)``
+    (None: ``os._exit``)."""
     _thread.exit_handler = handler
 
 
@@ -110,5 +113,5 @@ def fire(site: str, **ctx: Any) -> str | None:
         handler = getattr(_thread, "exit_handler", None)
         if handler is None:
             os._exit(code)
-        handler()
+        handler(code)
     return action

@@ -17,7 +17,12 @@ worker's session; the worker's own calls (``_next_result``, ``_quiesce``)
 take it from the worker's state. A runtime with a process per worker
 works the same way. The step breakdown goes to the worker's runtime
 (``record``) and to :func:`_step_metrics`, a process-wide tally, in
-place of JAX's flight recorder and Prometheus metrics.
+place of JAX's flight recorder and Prometheus metrics. A worker in a
+process of its own keeps its spans (``train.step``,
+``train.checkpoint_save``) until the reply of its next call, which
+carries them to the driver's recorder (the report's own ``_next_result``
+reply carries its step); ``time.monotonic()`` is the system's clock on
+Linux, so its stamps compare with the driver's.
 """
 
 from __future__ import annotations

@@ -124,7 +124,8 @@ class Result:
 class Trainer:
     """Gang-scheduled data-parallel training with elastic resume (JAX's
     ``JaxTrainer``). ``runtime`` makes the gang (default: an
-    ``InProcessTrainRuntime``, its workers threads of this process); its
+    ``InProcessTrainRuntime``, its workers threads of this process;
+    ``ProcessTrainRuntime``: a process a worker); its
     ``errors``, if it has them, are the infrastructure errors its calls
     raise (as ``RayActorError`` and ``GetTimeoutError``), retried under
     the failure budgets like ``RuntimeError`` and ``TimeoutError``."""

@@ -38,6 +38,19 @@ under the survivors (a peer's death, as the ring sees it).
 ``InProcessTrainRuntime`` makes these gangs. It has no processes, so the
 ``"torch"`` backend (one ``torch.distributed`` group over the workers)
 runs on it at world size 1 only.
+
+:class:`ProcessWorkerGroup` is the gang in processes, JAX's process
+model: each worker a :class:`ProcessTrainWorker` spawned through
+``serve/process_runtime.py``'s ``ProcessRuntime`` (its own interpreter
+and, on the card, its own CUDA context), its calls pickled over a pipe
+(worker functions travel by reference, so they live in modules a worker
+process can import). Its collective is a socket group of
+``collective/collective.py`` per epoch (the workers link to each other,
+not through the driver), with JAX's epochs: the driver picks each
+epoch and the members re-join under it, and a death during a join
+aborts the others' joins. A worker's death is its process's: EOF on its
+links and on its pipe. ``ProcessTrainRuntime`` makes these gangs
+(opt-in; ``InProcessTrainRuntime`` stays the default).
 """
 
 from __future__ import annotations
@@ -46,8 +59,11 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import logging
+import os
+import socket
 import threading
 import time
+import uuid
 from typing import Any, Callable
 
 import torch
@@ -57,6 +73,8 @@ from ray_tpu_torch.collective.collective import (  # noqa: F401 (re-exported)
     CollectiveAbortError,
     CollectiveTimeoutError,
 )
+from ray_tpu_torch.serve.process_runtime import ProcessRuntime
+from ray_tpu_torch.serve.runtime import ActorError
 from ray_tpu_torch.train import fault_injection
 
 logger = logging.getLogger(__name__)
@@ -258,7 +276,7 @@ class TrainWorker(Member):
     def check(self) -> None:
         self.gang.check(self)
 
-    def exit(self) -> None:
+    def exit(self, code: int = 1) -> None:
         """The ``exit`` fault action: this worker dies, here."""
         self.gang.kill(self)
         raise WorkerKilled()
@@ -517,6 +535,537 @@ class InProcessTrainRuntime:
         return InProcessWorkerGroup(num_workers, max_restarts=max_restarts,
                                     runtime_restarts=self.runtime_restarts,
                                     recorder=self.recorder, addr=self.addr)
+
+    def record(self, cat, name, t0, t1, attrs=None) -> None:
+        self.recorder.record(cat, name, t0, t1, attrs)
+
+
+# ---------------------------------------------------------------------------
+# the gang in processes
+# ---------------------------------------------------------------------------
+
+# calls a worker process runs at once: the result poll, a quiesce, a join
+# and its abort, a probe's ping
+MEMBER_CONCURRENCY = 8
+JOIN_POLL_S = 0.05  # how often the driver looks at the members of a join
+EPOCH_QUERY_S = 5.0  # a reform's deadline for the members' live epochs
+
+
+class ProcessTrainWorker:
+    """A train worker in a process of its own: the member class of
+    :class:`ProcessWorkerGroup`, and what worker functions get as their
+    first argument there. ``state`` lives as long as the process, so a
+    survivor keeps its device state across a warm resume. Its collective
+    is the process's socket group (``collective.init_collective_group`` /
+    ``reform_group``, joined when the driver says); ``exit`` ends the
+    process. The spans it records go back to the driver with the reply
+    of its next call. On ``device="cuda"`` it raises without a card."""
+
+    def __init__(self, worker_idx: int, actor_id: bytes, addr: str,
+                 device: str):
+        if device == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"train worker {worker_idx}: device "
+                                   "'cuda', but this process sees no card")
+            torch.cuda.init()  # the context, in the build's seconds
+        self.worker_idx = worker_idx
+        self._actor_id = actor_id
+        self.addr = addr
+        self.device = device
+        self.state: dict = {}
+        self.thread: threading.Thread | None = None
+        self._spans: list = []
+        self._spans_lock = threading.Lock()
+
+    # ---- calls from the driver ----
+
+    def execute(self, fn: Callable, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``, and the spans recorded here since
+        the last reply."""
+        out = fn(self, *args, **kwargs)
+        with self._spans_lock:
+            spans, self._spans = self._spans, []
+        return out, spans
+
+    def ping(self) -> int:
+        return os.getpid()
+
+    def node_id(self) -> str:
+        return socket.gethostname()
+
+    def join_count(self, group_name: str) -> int:
+        return collective.join_count(group_name)
+
+    def collective_epoch(self, group_name: str) -> int:
+        return collective.collective_epoch(group_name)
+
+    def join(self, world_size: int, rank: int, group_name: str,
+             addresses: list, authkey: bytes, epoch: int, timeout: float,
+             reform: bool) -> int:
+        """Join the gang's group at ``epoch`` (a reform when ``reform``)."""
+        if reform:
+            collective.reform_group(world_size, rank, group_name,
+                                    addresses=addresses, authkey=authkey,
+                                    epoch=epoch, timeout=timeout)
+        else:
+            collective.init_collective_group(
+                world_size, rank, group_name=group_name, timeout=timeout,
+                addresses=addresses, authkey=authkey, epoch=epoch)
+        return rank
+
+    def abort_join(self, group_name: str, epoch: int, reason: str) -> None:
+        collective.abort_join(group_name, epoch, reason)
+
+    def destroy(self, group_name: str) -> None:
+        collective.destroy_collective_group(group_name)
+
+    # ---- the worker's side ----
+
+    def check(self) -> None:
+        """A worker that runs is alive: its death ends its process."""
+
+    def exit(self, code: int = 1) -> None:
+        """The ``exit`` fault action: this process ends, here."""
+        os._exit(code)
+
+    def start_thread(self, target) -> threading.Thread:
+        self.thread = threading.Thread(target=target, daemon=True,
+                                       name=f"train-loop-{self.worker_idx}")
+        self.thread.start()
+        return self.thread
+
+    @contextlib.contextmanager
+    def stream_context(self):
+        """The loop on this process's default stream; what it enqueued is
+        done when the block exits."""
+        try:
+            yield
+        finally:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+
+    def record(self, cat, name, t0, t1, attrs=None) -> None:
+        with self._spans_lock:
+            self._spans.append((cat, name, t0, t1, attrs))
+
+    def abort_collectives(self, reason: str = "") -> int:
+        """Abort every incarnation and join of this process, here only."""
+        return collective.abort_all_local(reason)
+
+    def allreduce(self, tensor, group_name: str, op: str = "sum", *,
+                  codec=None, transport=None, timeout: float | None = None,
+                  ef_tag: str | None = None, out=None):
+        """As :meth:`TrainWorker.allreduce`, over this process's socket
+        group: the ranks send to each other, not through the driver."""
+        g = collective.get_group(group_name)
+        fault_injection.fire("collective.allreduce", group=group_name,
+                             rank=g.rank, bucket=ef_tag)
+        return collective.allreduce(g, tensor, op, codec=codec,
+                                    transport=transport, timeout=timeout,
+                                    ef_tag=ef_tag, out=out)
+
+
+class ProcessWorker:
+    """The driver's handle of a train worker process: its identity
+    (``worker_idx``, ``_actor_id``), its process (``member``, ``pid``)
+    and the runtime restarts of its place."""
+
+    def __init__(self, worker_idx: int, actor_id: bytes, member):
+        self.worker_idx = worker_idx
+        self._actor_id = actor_id
+        self.member = member
+        self.restarts = 0
+        self.restarting: threading.Event | None = None
+        self.retired = False  # reaped by the gang: no runtime restart
+
+    @property
+    def pid(self) -> int:
+        return self.member.pid
+
+    def __repr__(self):
+        return f"ProcessWorker({self.worker_idx}, pid={self.pid})"
+
+
+class ProcessWorkerGroup:
+    """``num_workers`` train workers, each a process of its own (module
+    docstring), spawned at once through a ``ProcessRuntime`` of the
+    gang's. JAX's ``WorkerGroup`` methods over them: ``max_restarts``
+    bounds the respawns :meth:`heal` makes (a fresh process and identity
+    in a dead one's place); with ``runtime_restarts`` it is also each
+    place's restart of its process in place (JAX's actor
+    ``max_restarts``): same identity, empty state. The collective is a
+    socket group; the driver picks each epoch (max of the members' live
+    epochs and its own last one, plus one) and hands out fresh addresses
+    for it, and a member's death during a join aborts the others' joins.
+    A worker on ``device="cuda"`` raises without a card; a worker that
+    fails to spawn or to build raises."""
+
+    actor_error = ActorError
+    processes = True
+
+    def __init__(self, num_workers: int, *, max_restarts: int = 0,
+                 runtime_restarts: bool = False, recorder=None,
+                 addr: str = "127.0.0.1", device: str = "cuda",
+                 name: str = "train"):
+        self.recorder = recorder or InertRecorder()
+        self._name = name
+        self.num_workers = num_workers
+        self.max_restarts = max_restarts
+        self._respawns_left = max_restarts
+        self.runtime_restarts = runtime_restarts
+        self._addr = addr
+        self._device = device
+        self._bundle_count = num_workers
+        self._next_worker_idx = 0
+        self._coll_group: str | None = None
+        self._epoch = 0  # the last epoch this driver handed out
+        self._token = uuid.uuid4().hex[:8]
+        self._closing = False
+        self._rt = ProcessRuntime(on_death=self._on_death)
+        self.workers: list[ProcessWorker] = []
+        try:
+            spawned = self._spawn_many(num_workers)
+            errors = [w for w in spawned if isinstance(w, BaseException)]
+            if errors:
+                raise errors[0]
+        except BaseException:
+            self._closing = True
+            self._rt.shutdown()
+            raise
+        self.workers = spawned
+        self.collective_ranks = list(range(num_workers))
+
+    # ---- members ----
+
+    def _spawn_member(self, idx: int, actor_id: bytes):
+        return self._rt.spawn(
+            ProcessTrainWorker, {"worker_idx": idx, "actor_id": actor_id,
+                                 "addr": self._addr, "device": self._device},
+            name=f"{self._name}-{idx}", max_concurrency=MEMBER_CONCURRENCY)
+
+    def _spawn_many(self, n: int) -> list:
+        """``n`` workers of fresh identities, spawned at once: each a
+        :class:`ProcessWorker`, or the exception its spawn raised."""
+        ids = []
+        for _ in range(n):
+            idx = self._next_worker_idx
+            self._next_worker_idx += 1
+            ids.append((idx, f"{self._name}-{idx}".encode()))
+        out: list = [None] * n
+
+        def one(i):
+            try:
+                out[i] = ProcessWorker(*ids[i], self._spawn_member(*ids[i]))
+            except BaseException as e:  # noqa: BLE001 — the caller decides
+                out[i] = e
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    def _on_death(self, member) -> None:
+        """A worker's process was reaped (the process runtime's reader):
+        record it, and restart the place in place while it has runtime
+        restarts."""
+        w = next((w for w in self.workers if w.member is member), None)
+        if w is None or self._closing or w.retired:
+            return
+        now = time.monotonic()
+        self.record("runtime", "worker.killed", now, now,
+                    {"member": w.worker_idx, "pid": member.pid,
+                     "exitcode": member.process.exitcode})
+        if self.runtime_restarts and w.restarts < self.max_restarts:
+            w.restarts += 1
+            w.restarting = threading.Event()
+            threading.Thread(target=self._restart, args=(w, w.restarting),
+                             name=f"{self._name}-restart-{w.worker_idx}",
+                             daemon=True).start()
+
+    def _restart(self, w: ProcessWorker, done: threading.Event) -> None:
+        try:
+            member = self._spawn_member(w.worker_idx, w._actor_id)
+            if w.retired or self._closing:
+                self._rt.kill(member)
+            else:
+                w.member = member
+        except Exception:  # noqa: BLE001 — the place stays dead
+            logger.exception("runtime restart of train worker %d failed",
+                             w.worker_idx)
+        finally:
+            w.restarting = None
+            done.set()
+
+    def kill(self, w: ProcessWorker) -> None:
+        """SIGKILL the worker's process (restarted in place while it has
+        runtime restarts)."""
+        self._rt.kill(w.member)
+
+    # ---- calls ----
+
+    def _call(self, w: ProcessWorker, method: str, *args):
+        return self._rt.call(w.member, method, *args)
+
+    def submit(self, w: ProcessWorker, fn: Callable, *args, **kwargs):
+        """Run ``fn(worker, *args, **kwargs)`` in ``w``'s process; a future
+        of its result (the spans that came with it go to the recorder)."""
+        inner = self._rt.call(w.member, "execute", fn, *args, **kwargs)
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        fut.worker = w
+
+        def settle(f):
+            exc = f.exception()
+            if exc is not None:
+                fut.set_exception(exc)
+                return
+            out, spans = f.result()
+            for span in spans:
+                self.record(*span)
+            fut.set_result(out)
+
+        inner.add_done_callback(settle)
+        return fut
+
+    def get(self, refs, timeout: float | None = None):
+        """The result of a future (or a list of them, under one deadline);
+        raises :class:`ActorError` for a worker whose process died under
+        the call, ``TimeoutError`` past ``timeout``."""
+        if isinstance(refs, list):
+            deadline = None if timeout is None else time.monotonic() + timeout
+            return [self.get(r, None if deadline is None
+                             else max(0.0, deadline - time.monotonic()))
+                    for r in refs]
+        try:
+            return refs.result(timeout)
+        except concurrent.futures.TimeoutError:
+            who = getattr(refs, "worker", None)
+            raise TimeoutError(
+                f"call on worker {getattr(who, 'worker_idx', '?')} outlived "
+                f"{timeout} s") from None
+
+    def execute_async(self, fn, *args, **kwargs) -> list:
+        return [self.submit(w, fn, *args, **kwargs) for w in self.workers]
+
+    def execute(self, fn, *args, timeout: float = 600.0, **kwargs) -> list:
+        return self.get(self.execute_async(fn, *args, **kwargs), timeout)
+
+    def execute_single(self, idx: int, fn, *args, **kwargs):
+        return self.get(self.submit(self.workers[idx], fn, *args, **kwargs), 600)
+
+    def node_ids(self) -> list[str]:
+        return self.get([self._call(w, "node_id") for w in self.workers], 60)
+
+    def record(self, cat, name, t0, t1, attrs=None) -> None:
+        self.recorder.record(cat, name, t0, t1, attrs)
+
+    # ---- elastic membership (JAX's WorkerGroup.probe / heal / grow) ----
+
+    def probe(self, timeout: float = 5.0, indices: list[int] | None = None
+              ) -> list[bool]:
+        """Liveness of members under one shared deadline: every ping is
+        sent at once. A member being restarted is not alive."""
+        idxs = range(len(self.workers)) if indices is None else indices
+        refs = [self._call(self.workers[i], "ping") for i in idxs]
+        deadline = time.monotonic() + timeout
+        alive = []
+        for ref in refs:
+            try:
+                ref.result(max(0.1, deadline - time.monotonic()))
+                alive.append(True)
+            except Exception:  # noqa: BLE001 — dead, or not back yet
+                alive.append(False)
+        return alive
+
+    def heal(self, *, wait_restart_s: float = 60.0, respawn: bool = True) -> int:
+        """JAX's heal: wait (up to ``wait_restart_s``) for runtime
+        restarts under way, reap what is still dead, respawn fresh
+        workers there at once while the respawn budget lasts, drop the
+        rest (shrink). Returns the world size; follow with
+        :meth:`reform_collective`."""
+        deadline = time.monotonic() + wait_restart_s
+        dead = [i for i, ok in enumerate(self.probe()) if not ok]
+        while dead and time.monotonic() < deadline:
+            pending = [self.workers[i].restarting for i in dead]
+            pending = [e for e in pending if e is not None]
+            if not pending:
+                break
+            for e in pending:
+                e.wait(max(0.0, deadline - time.monotonic()))
+            ok = self.probe(timeout=5.0, indices=dead)
+            dead = [i for i, alive in zip(dead, ok) if not alive]
+        for i in dead:  # reaped first: no restart may land after this
+            w = self.workers[i]
+            w.retired = True
+            self._rt.kill(w.member)
+        picks = dead[:self._respawns_left] if respawn else []
+        for i, w in zip(picks, self._spawn_many(len(picks))):
+            if isinstance(w, BaseException):
+                logger.warning("respawn of train worker %d failed: %s", i, w)
+                continue
+            self._respawns_left -= 1
+            self.workers[i] = w
+            dead.remove(i)
+            logger.info("train worker %d respawned (%d respawns left)", i,
+                        self._respawns_left)
+        if dead:
+            gone = set(dead)
+            self.workers = [w for i, w in enumerate(self.workers)
+                            if i not in gone]
+            logger.warning("worker group shrunk: dropped dead ranks %s, world "
+                           "size now %d", sorted(gone), len(self.workers))
+        self.num_workers = len(self.workers)
+        if self.num_workers == 0:
+            raise RuntimeError("worker group lost every member")
+        return self.num_workers
+
+    def grow(self, num_workers: int, timeout: float = 60.0) -> int:
+        """Add fresh workers (spawned at once) up to ``num_workers``, at
+        most the size the gang started with; a failed spawn stops the
+        expansion there. Follow with :meth:`reform_collective`."""
+        if num_workers > self._bundle_count:
+            raise ValueError(f"cannot grow to {num_workers}: the gang started "
+                             f"with {self._bundle_count}")
+        for w in self._spawn_many(max(0, num_workers - len(self.workers))):
+            if isinstance(w, BaseException):
+                logger.warning("grow: a train worker failed to start (%s); "
+                               "stopping expansion", w)
+                break
+            self.workers.append(w)
+        self.num_workers = len(self.workers)
+        return self.num_workers
+
+    # ---- the collective ----
+
+    def _join_all(self, name: str, epoch: int, reform: bool,
+                  timeout: float) -> None:
+        """Every member joins ``name`` at ``epoch`` over fresh addresses.
+        A member that dies (or fails) during the join ends the others'
+        joins at once, through a second call thread of theirs; the
+        survivors' ``CollectiveAbortError`` is raised here."""
+        world = len(self.workers)
+        addresses = collective.socket_addresses(
+            self._rt._root, f"{self._token}e{epoch}", world)
+        authkey = os.urandom(16)
+        refs = [self._call(w, "join", world, r, name, addresses, authkey,
+                           epoch, timeout, reform)
+                for r, w in enumerate(self.workers)]
+        deadline = time.monotonic() + timeout + 30.0
+        errors: dict[int, BaseException] = {}
+        pending = set(range(world))
+        aborted = False
+        while pending:
+            concurrent.futures.wait([refs[r] for r in pending],
+                                    timeout=JOIN_POLL_S,
+                                    return_when=concurrent.futures.FIRST_COMPLETED)
+            for r in [r for r in pending if refs[r].done()]:
+                pending.discard(r)
+                if refs[r].exception() is not None:
+                    errors[r] = refs[r].exception()
+            if errors and pending and not aborted:
+                aborted = True
+                reason = (f"rank(s) {sorted(errors)} failed during the join "
+                          f"of epoch {epoch}: {next(iter(errors.values()))}")
+                for r in pending:
+                    self._call(self.workers[r], "abort_join", name, epoch,
+                               reason)
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"collective group '{name}': the join of "
+                                   f"epoch {epoch} outlived {timeout} s")
+        if errors:
+            typed = [e for _, e in sorted(errors.items())
+                     if isinstance(e, CollectiveAbortError)]
+            raise (typed or [errors[min(errors)]])[0]
+
+    def init_collective(self, group_name: str | None = None,
+                        backend: str = "cpu", timeout: float = 120.0,
+                        **_) -> str:
+        """The members join a socket group under JAX's first epoch: one
+        past the most times any member has joined the name."""
+        name = group_name or f"{self._name}-{self._token}"
+        counts = self.get([self._call(w, "join_count", name)
+                           for w in self.workers], 60)
+        epoch = max([self._epoch] + counts) + 1
+        self._epoch = epoch
+        self._join_all(name, epoch, False, timeout)
+        self._coll_group = name
+        self.collective_ranks = list(range(len(self.workers)))
+        return name
+
+    def reform_collective(self, group_name: str | None = None,
+                          timeout: float = 120.0, **_) -> str:
+        """JAX's driver-coordinated reform: the epoch is one past the
+        highest of this driver's last and the members' live epochs, and
+        every current member re-joins under it (the old incarnation's
+        frames dropped, its residuals purged)."""
+        name = group_name or self._coll_group
+        if not name:
+            raise RuntimeError("no collective group to reform")
+        refs = [self._call(w, "collective_epoch", name) for w in self.workers]
+        deadline = time.monotonic() + EPOCH_QUERY_S
+        live = []
+        for ref in refs:
+            try:
+                live.append(ref.result(max(0.1, deadline - time.monotonic())))
+            except Exception:  # noqa: BLE001 — this driver's epoch bumps past it
+                pass
+        epoch = max([self._epoch] + live) + 1
+        self._epoch = epoch
+        self._join_all(name, epoch, True, timeout)
+        self._coll_group = name
+        self.collective_ranks = list(range(len(self.workers)))
+        return name
+
+    def destroy_collective(self) -> None:
+        if not self._coll_group:
+            return
+        try:
+            self.get([self._call(w, "destroy", self._coll_group)
+                      for w in self.workers], 30)
+        except Exception:  # noqa: BLE001 — teardown is best-effort
+            pass
+        self._coll_group = None
+
+    def shutdown(self) -> list:
+        """Kill and reap every worker process and remove the runtime's
+        store, socket files included; returns [] (no loop outlives its
+        process)."""
+        self._closing = True
+        self._rt.shutdown()
+        self.workers = []
+        self._coll_group = None
+        return []
+
+
+class ProcessTrainRuntime:
+    """Makes :class:`ProcessWorkerGroup` gangs: each train worker a
+    process of its own, with its own CUDA context on ``device="cuda"``
+    (the default; CPU callers pass ``device="cpu"``). Opt-in
+    (``Trainer(runtime=ProcessTrainRuntime())``); ``recorder`` takes the
+    spans (the workers' come back with their replies), and
+    ``runtime_restarts`` is as :class:`InProcessTrainRuntime`'s."""
+
+    processes = True
+    errors = (ActorError,)
+
+    def __init__(self, recorder=None, *, runtime_restarts: bool = False,
+                 addr: str = "127.0.0.1", device: str = "cuda"):
+        self.recorder = recorder or InertRecorder()
+        self.runtime_restarts = runtime_restarts
+        self.addr = addr
+        self.device = device
+
+    def worker_group(self, num_workers: int, *, resources_per_worker=None,
+                     strategy: str = "SPREAD", max_restarts: int = 0
+                     ) -> ProcessWorkerGroup:
+        """Processes on this host: ``resources_per_worker`` and
+        ``strategy`` are ignored."""
+        return ProcessWorkerGroup(num_workers, max_restarts=max_restarts,
+                                  runtime_restarts=self.runtime_restarts,
+                                  recorder=self.recorder, addr=self.addr,
+                                  device=self.device)
 
     def record(self, cat, name, t0, t1, attrs=None) -> None:
         self.recorder.record(cat, name, t0, t1, attrs)

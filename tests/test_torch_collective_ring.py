@@ -15,6 +15,7 @@ port's are ``torch.bfloat16`` tensors of the same bits.
 """
 
 import threading
+import time
 
 import ml_dtypes
 import numpy as np
@@ -339,3 +340,78 @@ def test_allreduce_into_out_equals_jax(codec, dtype):
     got = port_world(3, port_fn)
     for r in range(3):
         assert [bits(x) for x in got[r]] == [bits(x) for x in want[r]]
+
+
+# ---------------------------------------------------------------------------
+# the rooted ops and the barrier, against JAX's on the fake group
+# ---------------------------------------------------------------------------
+
+_jax_group = threading.local()
+
+
+@pytest.fixture
+def jax_by_thread(monkeypatch):
+    """JAX's reduce / broadcast / barrier look their group up by name;
+    here each thread's fake rank is its group."""
+    monkeypatch.setattr(jcol, "_group", lambda name: _jax_group.g)
+
+
+def _as_thread_group(fn):
+    def run(g, r):
+        _jax_group.g = g
+        return fn(g, r)
+    return run
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("world,root", [(1, 0), (2, 1), (3, 0), (3, 2)])
+def test_reduce_equals_jax(world, root, dtype, op, jax_by_thread):
+    data = payloads(dtype, world, seed=1300 + OPS.index(op))
+    want = jax_world(world, _as_thread_group(
+        lambda g, r: jcol.reduce(data[r][0], root, "t", op)))
+    got = port_world(world, lambda g, r: col.reduce(g, data[r][1], root, op))
+    for r in range(world):
+        assert bits(got[r]) == bits(want[r]), f"rank {r}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("world,root", [(1, 0), (2, 1), (3, 0), (3, 2)])
+def test_broadcast_equals_jax(world, root, dtype, jax_by_thread):
+    data = payloads(dtype, world, seed=1400)
+    want = jax_world(world, _as_thread_group(
+        lambda g, r: jcol.broadcast(data[r][0], root, "t")))
+    got = port_world(world, lambda g, r: col.broadcast(g, data[r][1], root))
+    for r in range(world):
+        assert bits(got[r]) == bits(want[r]) == bits(data[root][0]), f"rank {r}"
+
+
+@pytest.mark.parametrize("world", [1, 2, 3])
+def test_barrier_equals_jax(world, jax_by_thread):
+    """Every rank leaves the barrier after the last one entered it, having
+    run JAX's op (its seq and wire bytes)."""
+    def ranks(barrier, groups_stats):
+        entered, left = [None] * world, [None] * world
+
+        def fn(g, r):
+            if r == world - 1:
+                time.sleep(0.3)
+            entered[r] = time.monotonic()
+            assert barrier(g) is None
+            left[r] = time.monotonic()
+            return g.seq, groups_stats(g)
+        return fn, entered, left
+
+    jfn, jin, jout = ranks(lambda g: jcol.barrier("t"),
+                           lambda g: None)
+    want = jax_world(world, _as_thread_group(jfn))
+    pfn, pin, pout = ranks(col.barrier, lambda g: ring.last_op_stats(
+        g.name, g.rank).bytes_sent)
+    got = port_world(world, pfn)
+    # one op of the group's sequence (none at world 1: no frame moves)
+    assert [w[0] for w in want] == [g[0] for g in got] == \
+        [int(world > 1)] * world
+    for entered, left in ((jin, jout), (pin, pout)):
+        assert min(left) >= max(entered)
+    # an allreduce of one f64 zero: 2·(N−1)/N of 8 bytes a rank, ragged
+    assert sum(g[1] for g in got) == (0 if world == 1 else 2 * 8 * (world - 1))

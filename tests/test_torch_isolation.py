@@ -92,6 +92,14 @@ def test_imports_neither_jax_nor_ray_tpu(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_no_port_file_imports_cloudpickle():
+    """The card's host has no cloudpickle: worker functions reach a worker
+    process by reference, from a module it can import."""
+    bad = [p.relative_to(ROOT).as_posix() for p in _port_files()
+           if "cloudpickle" in set(_imported_roots(p))]
+    assert not bad, bad
+
+
 @pytest.mark.parametrize("name", ["compression", "ring", "collective"])
 def test_collective_engine_needs_no_ml_dtypes(name):
     """The ring and its codecs round bf16 through torch: the card's host
